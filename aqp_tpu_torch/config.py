@@ -1,0 +1,59 @@
+"""Runtime configuration of the joins (counterpart of aqp_tpu/config.py).
+
+`JoinConfig` keeps the reference's fields and defaults, so that one
+configuration means the same thing to both packages.  Fields that only
+engines of later slices read are kept for that reason.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+# Default target rows per final partition of the partition planner.
+DEFAULT_PARTITION_ROWS = 1 << 13
+
+
+@dataclasses.dataclass(frozen=True)
+class JoinConfig:
+    """Join configuration (analog of the reference's joinconfig_t)."""
+
+    # Radix bits per pass; None -> derived from |R|.  (Radix engines of a
+    # later slice.)
+    radix_bits: Optional[int] = None
+    # Forced number of partition passes; None -> derived.
+    passes: Optional[int] = None
+    # Materialize (key, r_payload, s_payload).  Not ported yet: RHO raises.
+    materialize: bool = False
+    # 64-bit keys and payloads.  Not ported yet: key_dtype raises.
+    key64: bool = False
+    # Hash-table load factor of the no-partition joins (later slice).
+    load_factor: float = 0.5
+    # Linear-probe window of the no-partition joins (later slice).
+    probe_window: int = 4
+    # Rows per partition targeted by the partition planner.
+    partition_rows: int = DEFAULT_PARTITION_ROWS
+    # Run the hand-written kernels' pipeline (rho3); False -> exact sort core.
+    use_pallas: bool = True
+    # Compute the mod-2^32 payload checksum; False runs the keys-only
+    # pipeline, which moves no payloads.
+    checksum: bool = True
+    # Serve FK -> dense-PK joins through the dense index when |R| is small.
+    dense_path: bool = True
+    dense_path_max_r: int = 1 << 21
+    # Return without any host synchronisation; joins.api.finalize_join
+    # validates the overflow counter later.
+    defer: bool = False
+    # Staged per-phase timing; it also turns off the dense path.
+    profile_phases: bool = False
+
+    @property
+    def key_dtype(self) -> torch.dtype:
+        if self.key64:
+            raise NotImplementedError("key64 is not ported yet")
+        return torch.int32
+
+    def replace(self, **kw) -> "JoinConfig":
+        return dataclasses.replace(self, **kw)

@@ -1,0 +1,138 @@
+"""Exact sort-based equi-join core (counterpart of aqp_tpu/ops/mergejoin.py).
+
+    1. sort concat(R, S) by key<<1 | tag, R rows tagged 0 so they sort
+       before S rows of an equal key;
+    2. propagate the last R (key, payload) forward;
+    3. an S row matches iff the propagated key equals its own.
+
+For unique R keys this is the exact join.  The `_general` variants count
+every (R, S) pair, for any R multiplicity.  This is the oracle and the last
+rung of RHO's ladder, on every device.
+
+Packing and sums run in int64: a key may be any int32 (the reference packs
+in int32 and needs |key| < 2^30), and the checksum is summed exactly and
+masked to 32 bits.  Results are 0-dim int64 tensors; the checksum lies in
+[0, 2^32).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+_U32 = 0xFFFFFFFF
+
+
+class JoinCounts(NamedTuple):
+    matches: torch.Tensor   # 0-dim int64
+    checksum: torch.Tensor  # 0-dim int64 in [0, 2^32)
+
+
+def _packed(r_key: torch.Tensor, s_key: torch.Tensor) -> torch.Tensor:
+    return torch.cat([r_key.long() << 1, (s_key.long() << 1) | 1])
+
+
+def _last_index(valid: torch.Tensor) -> torch.Tensor:
+    """Index of the last valid position at or before each position, -1
+    where there is none."""
+    idx = torch.arange(valid.numel(), device=valid.device)
+    return torch.where(valid, idx, -1).cummax(0).values
+
+
+def _propagate(is_r: torch.Tensor, key: torch.Tensor, pay: torch.Tensor):
+    """The last R row's (key, payload) at or before each position; -1 for
+    both where no R row precedes (the reference's sentinel)."""
+    last = _last_index(is_r)
+    seen = last >= 0
+    at = last.clamp(min=0)
+    neg = torch.full_like(key, -1)
+    return (torch.where(seen, key[at], neg),
+            torch.where(seen, pay[at], neg))
+
+
+def _u32(x: torch.Tensor) -> torch.Tensor:
+    return x.long() & _U32
+
+
+def _sorted_union(r_key, r_payload, s_key, s_payload):
+    pk, order = torch.sort(_packed(r_key, s_key), stable=True)
+    pay = torch.cat([r_payload.long(), s_payload.long()])[order]
+    return pk, pay
+
+
+def merge_join_count(r_key, r_payload, s_key, s_payload) -> JoinCounts:
+    """Exact match count + mod-2^32 checksum, unique R keys."""
+    pk, pay = _sorted_union(r_key, r_payload, s_key, s_payload)
+    is_r = (pk & 1) == 0
+    key = pk >> 1
+    prop_key, prop_pay = _propagate(is_r, key, pay)
+    match = ~is_r & (prop_key == key)
+    ck = torch.where(match, (_u32(prop_pay) + _u32(pay)) & _U32, 0)
+    return JoinCounts(match.sum(), ck.sum() & _U32)
+
+
+def merge_join_count_keys(r_key, s_key) -> JoinCounts:
+    """Matches-only count (no payloads move); checksum 0.  Unique R keys."""
+    pk = torch.sort(_packed(r_key, s_key)).values
+    is_r = (pk & 1) == 0
+    key = pk >> 1
+    prop_key, _ = _propagate(is_r, key, key)
+    match = ~is_r & (prop_key == key)
+    return JoinCounts(match.sum(), torch.zeros((), dtype=torch.int64,
+                                               device=pk.device))
+
+
+def _run_base(pk: torch.Tensor):
+    """Per position: is_r, the inclusive R count, and the R count before the
+    position's key run."""
+    key = pk >> 1
+    is_r = (pk & 1) == 0
+    r_ind = is_r.long()
+    r_pref = torch.cumsum(r_ind, 0)
+    prev = torch.cat([key.new_full((1,), -1), key[:-1]])
+    run_start = key != prev
+    return is_r, r_ind, r_pref, run_start
+
+
+def _at_run_start(run_start: torch.Tensor, base: torch.Tensor):
+    """`base` as it was at the start of each position's run (0 where no run
+    start precedes, as the reference's scan leaves it)."""
+    last = _last_index(run_start)
+    return torch.where(last >= 0, base[last.clamp(min=0)],
+                       torch.zeros_like(base))
+
+
+def count_general_scan(pk: torch.Tensor, pay: torch.Tensor) -> JoinCounts:
+    """Run-count scan of the duplicate-exact core on a sorted packed union
+    (pk = key<<1 | tag ascending, pay aligned payloads)."""
+    is_r, r_ind, r_pref, run_start = _run_base(pk)
+    rpay = torch.where(is_r, _u32(pay), 0)
+    rpay_pref = torch.cumsum(rpay, 0)
+    run_cnt0 = _at_run_start(run_start,
+                             torch.where(run_start, r_pref - r_ind, 0))
+    run_pay0 = _at_run_start(run_start,
+                             torch.where(run_start, rpay_pref - rpay, 0))
+    mult = torch.where(~is_r, r_pref - run_cnt0, 0)
+    rpay_sum = torch.where(~is_r, rpay_pref - run_pay0, 0)
+    ck = (rpay_sum + mult * _u32(pay)) & _U32
+    return JoinCounts(mult.sum(), ck.sum() & _U32)
+
+
+def merge_join_count_general(r_key, r_payload, s_key, s_payload
+                             ) -> JoinCounts:
+    """Duplicate-tolerant count: matches = sum over S of #R rows with its
+    key; checksum = sum over pairs of r_pay + s_pay, mod 2^32."""
+    pk, pay = _sorted_union(r_key, r_payload, s_key, s_payload)
+    return count_general_scan(pk, pay)
+
+
+def merge_join_count_general_keys(r_key, s_key) -> JoinCounts:
+    """Matches-only duplicate-tolerant count; checksum 0."""
+    pk = torch.sort(_packed(r_key, s_key)).values
+    is_r, r_ind, r_pref, run_start = _run_base(pk)
+    run_cnt0 = _at_run_start(run_start,
+                             torch.where(run_start, r_pref - r_ind, 0))
+    mult = torch.where(~is_r, r_pref - run_cnt0, 0)
+    return JoinCounts(mult.sum(), torch.zeros((), dtype=torch.int64,
+                                              device=pk.device))

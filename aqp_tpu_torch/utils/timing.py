@@ -1,0 +1,99 @@
+"""Phase timing and the metric contract (counterpart of aqp_tpu/utils/timing.py).
+
+Phases are timed with CUDA events on a CUDA device and with perf_counter on
+the CPU.  Throughput follows the reference: M input rows/s =
+(|R| + |S|) / total seconds / 1e6.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from dataclasses import dataclass, field
+from typing import Dict
+
+import torch
+
+PHASE_KEYS = (
+    "total",
+    "partition",
+    "partition_pass1",
+    "partition_pass2",
+    "build",
+    "probe",
+    "join",
+    "sort",
+    "merge",
+    "filter",
+    "materialize",
+    "shuffle",
+)
+
+
+@dataclass
+class Timings:
+    """Seconds per phase + derived throughput."""
+
+    phases: Dict[str, float] = field(default_factory=dict)
+    rows_in: int = 0
+    matches: int = 0
+
+    @property
+    def total(self) -> float:
+        return self.phases.get("total", sum(self.phases.values()))
+
+    @property
+    def mrows_per_s(self) -> float:
+        t = self.total
+        return (self.rows_in / t / 1e6) if t > 0 else float("inf")
+
+    def print_contract(self) -> None:
+        """Grep-able fixed-format lines (the reference's print_timing)."""
+        for k in PHASE_KEYS:
+            if k in self.phases:
+                print(f"{k.replace('_', ' ').title()} Time (s): "
+                      f"{self.phases[k]:.6f}")
+        print(f"Result tuples: {self.matches}")
+        print(f"Throughput (M rec/sec): {self.mrows_per_s:.4f}")
+
+    def json_line(self, **extra) -> str:
+        d = dict(phases=self.phases, rows_in=self.rows_in,
+                 matches=self.matches, mrows_per_s=self.mrows_per_s)
+        d.update(extra)
+        return json.dumps(d)
+
+
+class PhaseTimer:
+    """Phase timer around device work on one device."""
+
+    def __init__(self, device: torch.device) -> None:
+        self.device = torch.device(device)
+        self.t = Timings()
+
+    def _add(self, name: str, secs: float) -> None:
+        self.t.phases[name] = self.t.phases.get(name, 0.0) + secs
+
+    def time_fn(self, name: str, fn, *args, **kw):
+        """Run fn and add the time until the device has finished it: CUDA
+        events on a CUDA device, perf_counter on the CPU."""
+        if self.device.type != "cuda":
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            self._add(name, time.perf_counter() - t0)
+            return out
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn(*args, **kw)
+        b.record()
+        b.synchronize()
+        self._add(name, a.elapsed_time(b) / 1e3)
+        return out
+
+    def submit_fn(self, name: str, fn, *args, **kw):
+        """Deferred serving mode (JoinConfig.defer): records the host's
+        submission time only and never waits for the device."""
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        self._add(name, time.perf_counter() - t0)
+        return out

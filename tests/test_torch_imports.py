@@ -1,0 +1,92 @@
+"""The port stands alone: no jax, nothing of aqp_tpu, no PyTorch extension
+tooling, and no silent fall back to the CPU."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "aqp_tpu_torch"
+FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "aqp_tpu")
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if node.level == 0 else []
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{path.name}:{node.lineno} imports {bad}"
+
+
+def test_imports_without_jax():
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['aqp_tpu'] = None; "
+            "import aqp_tpu_torch, aqp_tpu_torch.engine, "
+            "aqp_tpu_torch.joins.api, aqp_tpu_torch.data, "
+            "aqp_tpu_torch.ops.kernels.rho3; print('ok')")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_no_extension_builder():
+    for path in sorted(PKG.rglob("*")):
+        if path.is_file() and path.suffix in (".py", ".cu", ".cuh"):
+            assert "cpp_extension" not in path.read_text(), path
+            if path.suffix in (".cu", ".cuh"):
+                assert "#include <torch" not in path.read_text(), path
+
+
+def test_entry_points_without_device_raise_when_no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present, so the default device works")
+    from aqp_tpu_torch import default_device
+    from aqp_tpu_torch.data import (create_relation_fk,
+                                    create_relation_fk_sel,
+                                    create_relation_pk)
+    from aqp_tpu_torch import engine
+    from aqp_tpu_torch.joins.api import finalize_join, run_join
+    from aqp_tpu_torch.relation import Relation
+
+    r = Relation.from_numpy(np.arange(1, 5, dtype=np.int32), device="cpu")
+    cols = (r.key, r.payload, r.key, r.payload)
+    calls = [
+        default_device,
+        lambda: create_relation_pk(16),
+        lambda: create_relation_fk(32, 16),
+        lambda: create_relation_fk_sel(32, 16, 50.0),
+        lambda: Relation.from_numpy(np.arange(4, dtype=np.int32)),
+        lambda: run_join(r, r),
+        lambda: finalize_join(r, r, None, None),
+        lambda: engine.rho_join_count_fused(*cols),
+        lambda: engine.rho_join_count_checked(*cols),
+        lambda: engine.rho_join_count(*cols),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+def test_kernel_wrappers_reject_other_devices():
+    from aqp_tpu_torch.ops.kernels import rho3
+
+    meta = torch.zeros(8, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        rho3.k1(meta, None, 8, rho3.Rho3Params(), 1.0)

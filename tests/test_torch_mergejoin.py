@@ -1,0 +1,78 @@
+"""The port's exact sort core against aqp_tpu.ops.mergejoin, on the CPU.
+
+Same numpy inputs to both; matches and checksum must be equal bitwise.
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from aqp_tpu.ops import mergejoin as jmj
+from aqp_tpu_torch.ops import mergejoin as tmj
+
+
+def _data(seed, nr=3000, ns=9000, dup_r=False):
+    rng = np.random.default_rng(seed)
+    if dup_r:
+        rk = rng.integers(1, nr // 3, nr)
+    else:
+        rk = rng.permutation(nr) + 1
+    # keys from -5 up, so S keys below every R key (and -1) occur too
+    sk = rng.integers(-5, 2 * nr, ns)
+    rp = rng.integers(-(1 << 31), 1 << 31, nr, dtype=np.int64)
+    sp = rng.integers(-(1 << 31), 1 << 31, ns, dtype=np.int64)
+    return [a.astype(np.int32) for a in (rk, rp, sk, sp)]
+
+
+def _same(j, t):
+    assert int(t.matches) == int(j.matches)
+    assert int(t.checksum) == int(j.checksum)
+    assert 0 <= int(t.checksum) < (1 << 32)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_merge_join_count(seed):
+    d = _data(seed)
+    _same(jmj.merge_join_count(*map(jnp.asarray, d)),
+          tmj.merge_join_count(*map(torch.from_numpy, d)))
+
+
+@pytest.mark.parametrize("dup_r", [False, True], ids=["unique", "dup"])
+def test_merge_join_count_keys(dup_r):
+    rk, _, sk, _ = _data(2, dup_r=dup_r)
+    j = jmj.merge_join_count_keys(jnp.asarray(rk), jnp.asarray(sk))
+    t = tmj.merge_join_count_keys(torch.from_numpy(rk), torch.from_numpy(sk))
+    _same(j, t)
+    assert int(t.checksum) == 0
+
+
+@pytest.mark.parametrize("dup_r", [False, True], ids=["unique", "dup"])
+def test_merge_join_count_general(dup_r):
+    d = _data(3, dup_r=dup_r)
+    j = jmj.merge_join_count_general(*map(jnp.asarray, d))
+    t = tmj.merge_join_count_general(*map(torch.from_numpy, d))
+    _same(j, t)
+    if dup_r:   # multiplicity-exact: more pairs than S rows can match once
+        assert int(t.matches) > int(
+            tmj.merge_join_count_keys(torch.from_numpy(d[0]),
+                                      torch.from_numpy(d[2])).matches)
+
+
+@pytest.mark.parametrize("dup_r", [False, True], ids=["unique", "dup"])
+def test_merge_join_count_general_keys(dup_r):
+    rk, _, sk, _ = _data(4, dup_r=dup_r)
+    j = jmj.merge_join_count_general_keys(jnp.asarray(rk), jnp.asarray(sk))
+    t = tmj.merge_join_count_general_keys(torch.from_numpy(rk),
+                                          torch.from_numpy(sk))
+    _same(j, t)
+
+
+def test_general_equals_propagate_core_for_unique_r():
+    # non-negative keys: the propagate core's "no R yet" sentinel is -1
+    rk, rp, sk, sp = _data(5)
+    d = [torch.from_numpy(a) for a in (rk, rp, np.abs(sk), sp)]
+    a = tmj.merge_join_count(*d)
+    b = tmj.merge_join_count_general(*d)
+    assert (int(a.matches), int(a.checksum)) == (int(b.matches),
+                                                 int(b.checksum))
