@@ -25,7 +25,7 @@ class JoinConfig:
     radix_bits: Optional[int] = None
     # Forced number of partition passes; None -> derived.
     passes: Optional[int] = None
-    # Materialize (key, r_payload, s_payload).  Not ported yet: RHO raises.
+    # Materialize (key, r_payload, s_payload).
     materialize: bool = False
     # 64-bit keys and payloads.  Not ported yet: key_dtype raises.
     key64: bool = False

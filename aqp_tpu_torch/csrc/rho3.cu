@@ -14,6 +14,10 @@
 //       (rho3.py:558).  For each region (f1 bucket, f2 bucket), counts the
 //       S elements whose key has an R element, and sums r_pay + s_pay
 //       mod 2^32 over them.
+//   K3M replaces _make_k3m (rho3.py:343), launched by
+//       rho_join_materialize_v3 (rho3.py:597).  K3, and every matched S
+//       element also writes (original key, R payload, S payload) at its own
+//       position in K2's layout; every other position gets (-3, 0, 0).
 //
 // Why the design differs from the TPU's: a K1 block at the default geometry
 // is 131072 keys (512 KB, 1 MB with payloads) and a K3 region can hold
@@ -65,6 +69,10 @@
 //   K3  reads the 262 MB of real fine-slot elements: >= 0.08 ms keys-only.
 //       Each run is staged once per probe run of its region (nbg times),
 //       which L2 serves; the binary searches run in shared memory.
+//   K3M reads the real fine-slot elements with payloads (524 MB) and writes
+//       three columns of the fine-slot array's length (3 x 302 MB): >=
+//       0.43 ms.  It reads as K3 does; each output position is written once,
+//       the holes included, so no pre-fill pass is needed.
 // None of the three is near its bound yet; PERF.md has the measured times.
 
 #include <cuda_runtime.h>
@@ -307,6 +315,96 @@ __global__ void __launch_bounds__(K3_THREADS) k3_count_kernel(
   }
 }
 
+// K3M: K3 with materialized output.  The CTA of (region, probe run j) owns
+// the output positions of fine slot (a, j, b): each matched S element writes
+// (((key >> 1) * inv) mod 2^30, R payload, S payload) at its own position,
+// and every other position of the slot's capacity (R elements, unmatched S
+// elements, pads) gets (-3, 0, 0).  inv is the salt's inverse mod 2^30, so
+// the first column is the original key.  Which R copy answers is K3's rule.
+__global__ void __launch_bounds__(K3_THREADS) k3m_kernel(
+    const int* __restrict__ k2, const int* __restrict__ p2,
+    const int* __restrict__ cnt2, int nbg, int f2, int cap2, int inv,
+    int* __restrict__ ok, int* __restrict__ orp, int* __restrict__ osp,
+    unsigned long long* __restrict__ matches,
+    unsigned int* __restrict__ checksum) {
+  extern __shared__ int smem[];
+  int* s_probe = smem;
+  int* s_rk = smem + cap2;
+  int* s_rp = smem + 2 * cap2;
+  const int j = blockIdx.x % nbg;
+  const int region = blockIdx.x / nbg;
+  const int a = region / f2;
+  const int b = region % f2;
+  const size_t cnt_j = ((size_t)a * nbg + j) * f2 + b;
+  const int cj = cnt2[cnt_j];
+  const size_t off_j = cnt_j * cap2;
+  int has_s = 0;
+  for (int e = threadIdx.x; e < cj; e += blockDim.x) {
+    const int k = k2[off_j + e];
+    s_probe[e] = k;
+    has_s |= k & 1;
+  }
+  const int any_s = __syncthreads_or(has_s);
+
+  unsigned long long done = 0ull;  // bit t: element threadIdx.x + t*blockDim.x
+  unsigned my_m = 0u;
+  unsigned my_c = 0u;
+  for (int i = 0; any_s && i < nbg; ++i) {
+    const size_t cnt_i = ((size_t)a * nbg + i) * f2 + b;
+    const int ci = cnt2[cnt_i];
+    if (ci == 0) continue;
+    const size_t off_i = cnt_i * cap2;
+    int has_r = 0;
+    for (int e = threadIdx.x; e < ci; e += blockDim.x) {
+      const int k = k2[off_i + e];
+      s_rk[e] = k;
+      s_rp[e] = p2[off_i + e];
+      has_r |= !(k & 1);
+    }
+    if (__syncthreads_or(has_r)) {
+      int t = 0;
+      for (int e = threadIdx.x; e < cj; e += blockDim.x, ++t) {
+        if ((done >> t) & 1ull) continue;
+        const int k = s_probe[e];
+        if (!(k & 1)) continue;
+        const int want = k - 1;
+        int lo = 0;
+        int hi = ci;
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (s_rk[mid] < want) lo = mid + 1; else hi = mid;
+        }
+        if (lo < ci && s_rk[lo] == want) {
+          done |= 1ull << t;
+          ++my_m;
+          const int rp = s_rp[lo];
+          const int sp = p2[off_j + e];
+          my_c += (unsigned)rp + (unsigned)sp;
+          ok[off_j + e] =
+              (int)(((unsigned)(k >> 1) * (unsigned)inv) & 0x3FFFFFFFu);
+          orp[off_j + e] = rp;
+          osp[off_j + e] = sp;
+        }
+      }
+    }
+    __syncthreads();  // the next run overwrites s_rk / s_rp
+  }
+  // holes: every position of the slot that no match wrote
+  int t = 0;
+  for (int e = threadIdx.x; e < cap2; e += blockDim.x, ++t) {
+    if (e < cj && ((done >> t) & 1ull)) continue;
+    ok[off_j + e] = -3;
+    orp[off_j + e] = 0;
+    osp[off_j + e] = 0;
+  }
+  my_m = warp_sum(my_m);
+  my_c = warp_sum(my_c);
+  if ((threadIdx.x & 31) == 0) {
+    if (my_m) atomicAdd(matches, (unsigned long long)my_m);
+    if (my_c) atomicAdd(checksum, my_c);
+  }
+}
+
 int sort_threads(int n_pow2) {
   int t = n_pow2 / 2;
   if (t < 32) t = 32;
@@ -419,6 +517,26 @@ int rho3_k3(const int* k2, const int* p2, const int* cnt2, int f1, int nbg,
     k3_count_kernel<false><<<grid, K3_THREADS, smem, st>>>(
         k2, nullptr, cnt2, nbg, f2, cap2, matches, checksum);
   }
+  return (int)cudaGetLastError();
+}
+
+// K3M: K2's fine slots with payloads -> ok/orp/osp[f1][nbg][f2][cap2] (every
+// position written), *matches, *checksum (accumulated; the caller zeroes
+// them).
+int rho3_k3m(const int* k2, const int* p2, const int* cnt2, int f1, int nbg,
+             int f2, int cap2, int inv, int* ok, int* orp, int* osp,
+             unsigned long long* matches, unsigned int* checksum,
+             void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  const size_t smem = (size_t)rho3_k3_smem(cap2, 1);
+  const int grid = f1 * f2 * nbg;
+  cudaError_t err = cudaFuncSetAttribute(
+      k3m_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (grid > 0)
+    k3m_kernel<<<grid, K3_THREADS, smem, st>>>(k2, p2, cnt2, nbg, f2, cap2,
+                                               inv, ok, orp, osp, matches,
+                                               checksum);
   return (int)cudaGetLastError();
 }
 

@@ -10,6 +10,8 @@ numpy and hand them to both):
   {1..maxid}, then the first n mod maxid entries of one more permutation,
   so joining against the maxid-row PK relation gives exactly n matches.
 - `create_relation_fk_sel`: matches with probability sel% per key.
+- `create_relation_zipf`: Zipf(z)-skewed keys over a shuffled alphabet
+  {1..alphabet_size}: rank r (from 1) has probability r^-z / sum_k k^-z.
 
 Generation runs on `device` from a `torch.Generator` seeded with `seed`.
 Payloads are zero, as in the reference, unless `random_payload` asks for
@@ -18,6 +20,7 @@ uniform int32 payloads, which make the join checksum non-trivial.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from aqp_tpu_torch import resolve_device
@@ -98,6 +101,36 @@ def create_relation_fk_sel(num_tuples: int, r_tuples: int,
                          generator=gen, device=dev)
     keys = torch.where(match, hit, miss).to(dtype)
     return _relation(keys, gen, random_payload)
+
+
+def _zipf_cdf_lut(alphabet_size: int, zipf_factor: float) -> np.ndarray:
+    """Normalized Zipf CDF over ranks 1..alphabet_size, in float64."""
+    ranks = np.arange(1, alphabet_size + 1, dtype=np.float64)
+    cdf = np.cumsum(ranks ** (-zipf_factor))
+    return cdf / cdf[-1]
+
+
+def zipf_ranks(cdf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """0-based ranks of the float32 uniforms `u` under the float32 CDF: the
+    first index whose CDF value is not below u, clamped to the alphabet."""
+    return torch.searchsorted(cdf, u, side="left").clamp(0, cdf.numel() - 1)
+
+
+def create_relation_zipf(num_tuples: int, alphabet_size: int,
+                         zipf_factor: float, seed: int = 22222,
+                         dtype=torch.int32, device="cuda",
+                         random_payload: bool = False) -> Relation:
+    """Zipf(z)-skewed FK keys over a shuffled alphabet {1..alphabet_size}:
+    a uniform u in [0, 1) is looked up in the CDF table (float32), and the
+    rank indexes a seeded permutation of the alphabet, so the heavy hitters
+    are random key values, not small ones."""
+    dev = resolve_device(device)
+    gen = _generator(seed, dev)
+    cdf = torch.from_numpy(_zipf_cdf_lut(alphabet_size, zipf_factor)).to(
+        device=dev, dtype=torch.float32)
+    alphabet = _perm1(alphabet_size, gen, dev, dtype)
+    u = torch.rand(num_tuples, generator=gen, dtype=torch.float32, device=dev)
+    return _relation(alphabet[zipf_ranks(cdf, u)], gen, random_payload)
 
 
 def oracle_matches_fk(num_s_tuples: int) -> int:

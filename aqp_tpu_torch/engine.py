@@ -1,5 +1,5 @@
 """Fused entry points for benchmarking and serving (counterpart of
-aqp_tpu/engine.py, count paths).
+aqp_tpu/engine.py).
 
 The reference runs the Pallas pipeline on a TPU and the XLA sort core
 elsewhere; the port runs the fixed-slot pipeline (ops/kernels/rho3.py) on
@@ -12,7 +12,8 @@ from __future__ import annotations
 
 from aqp_tpu_torch import check_device
 from aqp_tpu_torch.ops import mergejoin
-from aqp_tpu_torch.ops.kernels.rho3 import rho_join_count_v3
+from aqp_tpu_torch.ops.kernels.rho3 import (rho_join_count_v3,
+                                            rho_join_materialize_v3)
 
 
 def rho_join_count_fused(rk, rp, sk, sp, device="cuda"):
@@ -36,3 +37,19 @@ def rho_join_count(rk, rp, sk, sp, device="cuda"):
     """Exact count join for any key distribution: the sort core."""
     check_device(device, rk, rp, sk, sp)
     return mergejoin.merge_join_count(rk, rp, sk, sp)
+
+
+def rho_join_materialize_fused(rk, rp, sk, sp, device="cuda"):
+    """Fused materializing RHO join: region-chunked output columns with
+    sentinel holes (see rho3.rho_join_materialize_v3).  Returns (matches,
+    checksum, key, r_payload, s_payload, overflow); overflow > 0 means the
+    result is invalid."""
+    check_device(device, rk, rp, sk, sp)
+    return rho_join_materialize_v3(rk, rp, sk, sp)
+
+
+def rho_join_materialize(rk, rp, sk, sp, capacity: int, device="cuda"):
+    """Dense fixed-capacity materialized join (the exact sort core): live
+    rows first, holes keyed -3 behind them."""
+    check_device(device, rk, rp, sk, sp)
+    return mergejoin.merge_join_materialize(rk, rp, sk, sp, capacity)

@@ -6,10 +6,12 @@ registered algorithms.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Dict, Optional, Tuple
 
 from aqp_tpu_torch import check_device
 from aqp_tpu_torch.config import JoinConfig
+from aqp_tpu_torch.joins import skewtier
 from aqp_tpu_torch.relation import JoinResult, Relation
 from aqp_tpu_torch.utils.timing import Timings
 
@@ -52,14 +54,18 @@ def finalize_join(relR: Relation, relS: Relation, result: JoinResult,
                   timings: Timings, algorithm: str = "RHO",
                   config: Optional[JoinConfig] = None, device="cuda"
                   ) -> Tuple[JoinResult, Timings]:
-    """Validate a deferred join result (waits for the device).  On an
-    overflow, run the whole ladder again synchronously."""
+    """Validate a deferred join result (waits for the device).  Returns the
+    result itself, materialized columns and all, with `overflow` cleared.
+    On an overflow, run the whole ladder again synchronously."""
     cfg = (config or JoinConfig()).replace(defer=False)
     check_device(device, relR.key, relS.key)
     if result.overflow is not None and int(result.overflow) != 0:
+        # a sampled residual capacity that overflowed would overflow again
+        # on every later deferred call for this relation: demote it first
+        skewtier.demote_resid(relS.key)
         return run_join(relR, relS, algorithm, cfg, device=device)
     timings.matches = int(result.matches)
-    return JoinResult(matches=result.matches, checksum=result.checksum), timings
+    return dataclasses.replace(result, overflow=None), timings
 
 
 # Engine registration side effects:

@@ -1,15 +1,28 @@
 """RHO, the radix join (counterpart of the RHO engine of aqp_tpu/joins/radix.py).
 
-The count ladder: the dense-PK path when it applies, then the fixed-slot
-pipeline (ops/kernels/rho3.py) under RETRY_SALTS[0], then under the other
-salts, then the exact sort core.  A tier's result is used only when its
-overflow count is zero, so the answer is never silently wrong.
+The escalation ladder, for counts and for materialized output:
+
+  1. the dense-PK path when it applies;
+  2. the skew tiers first when the cached sampled statistic of S
+     (joins/skewtier.skew_plan) says so: for counts the compacted-residual
+     tier (when the plan gives a residual capacity), then the full-capacity
+     heavy-split tier, then the plain pipeline; for materialize the
+     heavy-split materializer, then the plain materializer;
+  3. otherwise the plain fixed-slot pipeline (ops/kernels/rho3.py) under
+     RETRY_SALTS[0], then the heavy-split tier (slot overflow is almost
+     always duplicate-key mass, which no salt spreads);
+  4. the pipeline under the other salts;
+  5. the exact sort core (ops/mergejoin.py).
+
+A tier's result is used only when its overflow count is zero, so the answer
+is never silently wrong.  A compacted-residual tier that overflowed demotes
+the cached plan, so later calls on the same S skip it.  With
+JoinConfig.defer the first tier's result returns unchecked, its overflow
+counter beside it, and joins.api.finalize_join walks the ladder if needed.
 
 The reference takes the pipeline only on a TPU; the port takes it on every
 device, through the plain versions on the CPU, so the CPU tests run the
-same ladder the card runs.  Not ported yet: the heavy-split skew tier
-(a duplicate-heavy input still gets its exact answer through the salts and
-the exact core) and materialization.
+same ladder the card runs.
 """
 
 from __future__ import annotations
@@ -18,19 +31,61 @@ import time
 
 from aqp_tpu_torch.config import JoinConfig
 from aqp_tpu_torch.joins.api import register
-from aqp_tpu_torch.joins.common import to_join_result
-from aqp_tpu_torch.joins.dense import dense_pk_applicable, dense_pk_join
+from aqp_tpu_torch.joins.common import result_capacity, to_join_result
+from aqp_tpu_torch.joins.dense import (dense_pk_applicable, dense_pk_join,
+                                       dense_proof)
+from aqp_tpu_torch.joins.skewtier import (demote_resid,
+                                          rho_skew_split_materialize,
+                                          skew_fused_count, skew_plan)
 from aqp_tpu_torch.ops import mergejoin
-from aqp_tpu_torch.ops.kernels.rho3 import RETRY_SALTS, rho_join_count_v3
+from aqp_tpu_torch.ops.kernels.rho3 import (RETRY_SALTS, rho_join_count_v3,
+                                            rho_join_materialize_v3)
 from aqp_tpu_torch.relation import JoinResult, Relation
 from aqp_tpu_torch.utils.timing import PhaseTimer
 
 
+def _materialize_tiers(hinted: bool):
+    tiers = [(rho_join_materialize_v3, RETRY_SALTS[0]),
+             (rho_skew_split_materialize, RETRY_SALTS[0])]
+    if hinted:
+        tiers.reverse()
+    return tiers + [(rho_join_materialize_v3, s) for s in RETRY_SALTS[1:]]
+
+
+def _count_tiers(relR: Relation, cfg: JoinConfig, hinted: bool,
+                 cap_rows: int):
+    """The count ladder's tiers as (fn(rk, rp, sk, sp, salt) -> (matches,
+    checksum, overflow), salt, is the compacted-residual tier)."""
+    def r_dense():
+        return not cfg.checksum and dense_proof(relR.key)
+
+    def count_v3(rk, rp, sk, sp, salt):
+        return rho_join_count_v3(rk, rp, sk, sp, salt=salt,
+                                 with_checksum=cfg.checksum)
+
+    def skew_v3(rk, rp, sk, sp, salt):
+        return skew_fused_count(rk, rp, sk, sp, salt,
+                                with_checksum=cfg.checksum,
+                                r_dense=r_dense())
+
+    def skew_resid(rk, rp, sk, sp, salt):
+        return skew_fused_count(rk, rp, sk, sp, salt,
+                                with_checksum=cfg.checksum,
+                                resid_cap_rows=cap_rows,
+                                r_dense=r_dense())
+
+    s0 = RETRY_SALTS[0]
+    if hinted:
+        tiers = [(skew_resid, s0, True)] if cap_rows else []
+        tiers += [(skew_v3, s0, False), (count_v3, s0, False)]
+    else:
+        tiers = [(count_v3, s0, False), (skew_v3, s0, False)]
+    return tiers + [(count_v3, s, False) for s in RETRY_SALTS[1:]]
+
+
 @register("RHO")
 def RHO(relR: Relation, relS: Relation, cfg: JoinConfig):
-    """Parallel radix join, count path."""
-    if cfg.materialize:
-        raise NotImplementedError("RHO materialization is not ported yet")
+    """Parallel radix join: count and materialize, through the ladder."""
     for rel in (relR, relS):
         if rel.key.dtype != cfg.key_dtype:
             raise TypeError(f"RHO takes {cfg.key_dtype} keys, got "
@@ -42,19 +97,42 @@ def RHO(relR: Relation, relS: Relation, cfg: JoinConfig):
     pt = PhaseTimer(relR.device)
     t0 = time.perf_counter()
     if cfg.use_pallas:
+        hinted, cap_rows = skew_plan(relS.key)
         call = pt.submit_fn if cfg.defer else pt.time_fn
-        for salt in RETRY_SALTS:
-            m, c, ovf = call("join", rho_join_count_v3, relR.key,
-                             relR.payload, relS.key, relS.payload, salt=salt,
-                             with_checksum=cfg.checksum)
-            if cfg.defer:
-                pt.t.phases["total"] = time.perf_counter() - t0
-                return JoinResult(matches=m, checksum=c, overflow=ovf), pt.t
-            if int(ovf) == 0:
-                pt.t.phases["total"] = time.perf_counter() - t0
-                return JoinResult(matches=m, checksum=c), pt.t
-    # adversarial skew beyond every salt: the exact core
-    out = pt.time_fn("join", mergejoin.merge_join_count, relR.key,
-                     relR.payload, relS.key, relS.payload)
+
+        def attempt(fn, salt):
+            return call("join", fn, relR.key, relR.payload, relS.key,
+                        relS.payload, salt=salt)
+
+        if cfg.materialize:
+            for fn, salt in _materialize_tiers(hinted):
+                m, c, ok, orp, osp, ovf = attempt(fn, salt)
+                if cfg.defer or int(ovf) == 0:
+                    pt.t.phases["total"] = time.perf_counter() - t0
+                    return JoinResult(
+                        matches=m, checksum=c, key=ok, r_payload=orp,
+                        s_payload=osp,
+                        overflow=ovf if cfg.defer else None), pt.t
+        else:
+            for fn, salt, resid in _count_tiers(relR, cfg, hinted, cap_rows):
+                m, c, ovf = attempt(fn, salt)
+                if cfg.defer:
+                    pt.t.phases["total"] = time.perf_counter() - t0
+                    return JoinResult(matches=m, checksum=c,
+                                      overflow=ovf), pt.t
+                if int(ovf) == 0:
+                    pt.t.phases["total"] = time.perf_counter() - t0
+                    return JoinResult(matches=m, checksum=c), pt.t
+                if resid:
+                    # the sampled capacity fails the same way next call
+                    demote_resid(relS.key)
+    # adversarial skew beyond every tier: the exact core
+    if cfg.materialize:
+        out = pt.time_fn("join", mergejoin.merge_join_materialize, relR.key,
+                         relR.payload, relS.key, relS.payload,
+                         result_capacity(relS, cfg))
+    else:
+        out = pt.time_fn("join", mergejoin.merge_join_count, relR.key,
+                         relR.payload, relS.key, relS.payload)
     pt.t.phases["total"] = time.perf_counter() - t0
     return to_join_result(out), pt.t

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Every `.cu` file under `aqp_tpu_torch/csrc/` is compiled by ONE `nvcc` call
-into one shared library with a plain C interface, which `ctypes` loads.  No
+Every `.cu` file under `aqp_tpu_torch/csrc/` is compiled by its own `nvcc`
+process, all started together, and one more `nvcc` links the objects into
+one shared library with a plain C interface, which `ctypes` loads.  No
 PyTorch header is included and PyTorch's extension tooling is not used: such a
 build takes minutes where this one takes seconds, and it needs `ninja`.
 
@@ -10,7 +11,10 @@ changed source builds anew and an unchanged one loads at once.  It is
 written under a temporary name and moved into place with `os.replace`, so
 an interrupted build leaves no half-written library and no lock file.
 
-The build happens at first use (`load()`), never at import.
+The build happens at first use (`load()`), never at import.  The helpers
+at the end are what every kernel wrapper uses around a launch: the device
+rule (a CPU tensor takes the plain version, a CUDA tensor the kernel,
+anything else raises), argument checks, pointers and the current stream.
 """
 
 from __future__ import annotations
@@ -24,6 +28,9 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
+
+import torch
 
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -31,7 +38,7 @@ BUILD_DIR = PKG_DIR / "_build"
 
 # No --use_fast_math: rho3's fine bucket depends on exact float32 rounding.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,6 +55,11 @@ SIGNATURES = {
     "rho3_k3_smem": ([_I, _I], _LL),
     "rho3_k3_max_cap": ([], _I),
     "rho3_k3": ([_P, _P, _P, _I, _I, _I, _I, _P, _P, _P], _I),
+    "rho3_k3m": ([_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+                 _I),
+    "compact_windows": ([_P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _I, _P, _P,
+                         _P, _P], _I),
+    "scatter_segments": ([_P, _P, _P, _P, _P, _I, _LL, _LL, _P, _P, _P], _I),
 }
 
 
@@ -73,36 +85,56 @@ def sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu")) + sorted(CSRC_DIR.glob("*.cuh"))
 
 
-def library_path() -> Path:
+def library_path(build_dir: Optional[Path] = None) -> Path:
     h = hashlib.sha256()
     for p in sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libaqp_kernels_{h.hexdigest()[:16]}.so"
+    name = f"libaqp_kernels_{h.hexdigest()[:16]}.so"
+    return (build_dir or BUILD_DIR) / name
 
 
-def build() -> tuple[Path, float]:
-    """Compile the library if it is not built yet.  Returns (path, seconds
-    spent compiling; 0.0 when it was already there)."""
-    out = library_path()
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; raise with the first failure's
+    output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for cmd, p, (_, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{err}")
+
+
+def build(build_dir: Optional[Path] = None) -> tuple[Path, float]:
+    """Compile the library into build_dir (default BUILD_DIR) if it is not
+    built there yet.  Returns (path, seconds spent compiling; 0.0 when it
+    was already there)."""
+    out = library_path(build_dir)
     if out.is_file():
         return out, 0.0
     nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cu = [str(p) for p in sources() if p.suffix == ".cu"]
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp), *cu]
+    cu = [p for p in sources() if p.suffix == ".cu"]
+    objs = [out.parent / f"{tag}.{p.stem}.o" for p in cu]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    if proc.returncode != 0:
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", str(src),
+                   "-o", str(obj)] for src, obj in zip(cu, objs)])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]])
+        os.replace(tmp, out)
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, out)
-    print(f"[aqp_tpu_torch] built {out.name} in {secs:.2f} s",
-          file=sys.stderr, flush=True)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    secs = time.perf_counter() - t0
+    print(f"[aqp_tpu_torch] built {out.name} from {len(cu)} sources in "
+          f"{secs:.2f} s", file=sys.stderr, flush=True)
     return out, secs
 
 
@@ -123,3 +155,39 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.rho3_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def on_cuda(x: torch.Tensor) -> bool:
+    """True for a CUDA tensor (the kernel runs), False for a CPU tensor
+    (the plain version runs); any other device raises."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return True
+
+
+def need(x: Optional[torch.Tensor], name: str, shape, device) -> None:
+    """Raise unless x (when given) is a contiguous int32 tensor of `shape`
+    on `device`."""
+    if x is None:
+        return
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, expected {device}")
+    if x.dtype != torch.int32:
+        raise TypeError(f"{name} must be int32, got {x.dtype}")
+    if tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def ptr(x: Optional[torch.Tensor]):
+    """The device pointer of x as a Python int, None for no tensor."""
+    return None if x is None else x.data_ptr()
+
+
+def stream(device: torch.device) -> int:
+    """The current CUDA stream of `device`, as the launchers take it."""
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,4 +1,4 @@
-"""Fixed-slot two-level RHO count join (counterpart of aqp_tpu/ops/pallas/rho3.py).
+"""Fixed-slot two-level RHO join (counterpart of aqp_tpu/ops/pallas/rho3.py).
 
 The pipeline and its constants are the reference's:
 
@@ -11,14 +11,17 @@ The pipeline and its constants are the reference's:
               window) into f2 fine slots;
   K3          per region (f1 bucket, f2 bucket): count the S elements whose
               R partner (packed key - 1) is in the region, and sum
-              r_pay + s_pay over them mod 2^32.
+              r_pay + s_pay over them mod 2^32;
+  K3M         K3, and every matched S element writes (original key, R
+              payload, S payload) at its own position of K2's slot layout;
+              every other position carries the hole (-3, 0, 0).
 
 Buckets are ranges of sigma, so equal keys always meet in one region.
 Overflow of a slot, and any key outside [0, 2^30) or aliasing the pad, is
 REPORTED in the overflow count, never answered wrongly.
 
-Each of K1, K2 and K3 has a plain PyTorch version (`k1_plain`, ...) and a
-wrapper (`k1`, ...).  The wrapper sends a CPU tensor to the plain version
+Each of K1, K2, K3 and K3M has a plain PyTorch version (`k1_plain`, ...)
+and a wrapper (`k1`, ...).  The wrapper sends a CPU tensor to the plain version
 and a CUDA tensor to the hand-written kernel in csrc/rho3.cu; there is no
 fallback from one to the other.  `LAUNCHES` counts the kernel launches.
 
@@ -36,11 +39,10 @@ out positions with atomics), so its contents are never compared or used.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
-
 import torch
 
 from aqp_tpu_torch.ops.kernels import build
+from aqp_tpu_torch.ops.kernels.build import need, on_cuda, ptr, stream
 
 LANES = 128
 KEY_PAD_INT = 2147483647    # int32 max: pads sort last, never a packed key
@@ -58,7 +60,7 @@ RETRY_SALTS = (HASH_C, 0x2545F491 | 1, 0x9E3779B9 & HASH_MASK | 1)
 
 # Launches of each hand-written kernel in this process (the plain versions
 # do not count).  Reset by assigning 0.
-LAUNCHES = {"K1": 0, "K2": 0, "K3": 0}
+LAUNCHES = {"K1": 0, "K2": 0, "K3": 0, "K3M": 0}
 
 _U32 = 0xFFFFFFFF
 
@@ -221,9 +223,12 @@ def k2_plain(k1, p1, cnt1, prm: Rho3Params, scale: float):
             cnt.view(prm.f1, nbg, prm.f2), ovf)
 
 
-def k3_plain(k2, p2, cnt2):
-    """K3 in plain PyTorch.  Returns (matches, checksum) as 0-dim int64
-    tensors, the checksum in [0, 2^32) (0 without payloads).
+def _region_join(k2, p2, cnt2):
+    """The region join of K3 and K3M in plain PyTorch.  Returns (pos,
+    key, hit, r_pay, s_pay): per S element of the fine slots, its flat
+    position in k2, its packed key, whether it matched, and (with payloads,
+    else None) the answering R payload and its own payload, both as
+    unsigned int64.
 
     An S element matches when its region holds its R partner (packed key
     - 1).  The first run (window index) that holds the partner decides, and
@@ -252,56 +257,62 @@ def k3_plain(k2, p2, cnt2):
     want = comp[is_s] - 1
     at = torch.searchsorted(u_comp, want).clamp(max=u_comp.numel() - 1)
     hit = u_comp[at] == want
+    pos = torch.nonzero(live.view(-1), as_tuple=True)[0][is_s]
+    if p2 is None:
+        return pos, key[is_s], hit, None, None
+    u_pay = torch.cat([none, r_pay[perm][first]])
+    return pos, key[is_s], hit, u_pay[at], pay[is_s]
+
+
+def k3_plain(k2, p2, cnt2):
+    """K3 in plain PyTorch.  Returns (matches, checksum) as 0-dim int64
+    tensors, the checksum in [0, 2^32) (0 without payloads).  Which R copy
+    answers: see _region_join."""
+    _, _, hit, r_pay, s_pay = _region_join(k2, p2, cnt2)
     matches = hit.sum()
     if p2 is None:
-        return matches, torch.zeros((), dtype=torch.int64, device=dev)
-    u_pay = torch.cat([none, r_pay[perm][first]])
-    ck = torch.where(hit, (u_pay[at] + pay[is_s]) & _U32, 0)
+        return matches, torch.zeros((), dtype=torch.int64, device=k2.device)
+    ck = torch.where(hit, (r_pay + s_pay) & _U32, 0)
     return matches, ck.sum() & _U32
+
+
+def k3m_plain(k2, p2, cnt2, inv: int):
+    """K3M in plain PyTorch.  Returns (matches, checksum, key, r_payload,
+    s_payload): the scalars as k3_plain's, the columns int32 of k2's flat
+    length.  A matched S element at flat position q of k2 writes
+    (((packed >> 1) * inv) mod 2^30, R payload, S payload) at q; every
+    other position holds (-3, 0, 0)."""
+    pos, key, hit, r_pay, s_pay = _region_join(k2, p2, cnt2)
+    dev = k2.device
+    n = k2.numel()
+    ok = torch.full((n,), -3, dtype=torch.int32, device=dev)
+    orp = torch.zeros((n,), dtype=torch.int32, device=dev)
+    osp = torch.zeros((n,), dtype=torch.int32, device=dev)
+    q = pos[hit]
+    ok[q] = (((key[hit] >> 1) * inv) & HASH_MASK).to(torch.int32)
+    orp[q] = _as_i32(r_pay[hit])
+    osp[q] = _as_i32(s_pay[hit])
+    ck = torch.where(hit, (r_pay + s_pay) & _U32, 0)
+    return hit.sum(), ck.sum() & _U32, ok, orp, osp
+
+
+def _as_i32(u: torch.Tensor) -> torch.Tensor:
+    """Unsigned 32-bit values held in int64 back to their int32 bits."""
+    return torch.where(u >= (1 << 31), u - (1 << 32), u).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
 # Wrappers: CPU tensor -> plain version, CUDA tensor -> kernel
 
 
-def _on_cuda(x: torch.Tensor) -> bool:
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    return True
-
-
-def _need(x: Optional[torch.Tensor], name: str, shape, device) -> None:
-    if x is None:
-        return
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != torch.int32:
-        raise TypeError(f"{name} must be int32, got {x.dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _ptr(x: Optional[torch.Tensor]):
-    return None if x is None else x.data_ptr()
-
-
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 def k1(packed, pay, nb: int, prm: Rho3Params, scale: float):
     """K1: route packed keys into level-1 slots (see k1_plain)."""
-    if not _on_cuda(packed):
+    if not on_cuda(packed):
         return k1_plain(packed, pay, nb, prm, scale)
     dev = packed.device
     n = packed.numel()
-    _need(packed, "packed", (n,), dev)
-    _need(pay, "pay", (n,), dev)
+    need(packed, "packed", (n,), dev)
+    need(pay, "pay", (n,), dev)
     if n > nb * prm.block:
         raise ValueError(f"{n} keys do not fit {nb} blocks of {prm.block}")
     lib = build.load()
@@ -309,9 +320,9 @@ def k1(packed, pay, nb: int, prm: Rho3Params, scale: float):
     out_p = None if pay is None else torch.empty_like(out_k)
     cnt = torch.empty((nb, prm.f1), dtype=torch.int32, device=dev)
     ovf = torch.zeros((), dtype=torch.int64, device=dev)
-    err = lib.rho3_k1(_ptr(packed), _ptr(pay), n, nb, prm.block, prm.f1,
-                      prm.f2, _f32(scale), prm.cap1, _ptr(out_k),
-                      _ptr(out_p), _ptr(cnt), _ptr(ovf), _stream(dev))
+    err = lib.rho3_k1(ptr(packed), ptr(pay), n, nb, prm.block, prm.f1,
+                      prm.f2, _f32(scale), prm.cap1, ptr(out_k),
+                      ptr(out_p), ptr(cnt), ptr(ovf), stream(dev))
     build.check(lib, err, "rho3 K1")
     LAUNCHES["K1"] += 1
     return out_k, out_p, cnt, ovf
@@ -319,26 +330,26 @@ def k1(packed, pay, nb: int, prm: Rho3Params, scale: float):
 
 def k2(k1_keys, p1, cnt1, prm: Rho3Params, scale: float):
     """K2: route level-1 windows into fine slots (see k2_plain)."""
-    if not _on_cuda(k1_keys):
+    if not on_cuda(k1_keys):
         return k2_plain(k1_keys, p1, cnt1, prm, scale)
     dev = k1_keys.device
     nb = k1_keys.shape[0]
     if nb % prm.group:
         raise ValueError(f"{nb} blocks are not whole windows of {prm.group}")
     nbg = nb // prm.group
-    _need(k1_keys, "k1", (nb, prm.f1, prm.cap1), dev)
-    _need(p1, "p1", (nb, prm.f1, prm.cap1), dev)
-    _need(cnt1, "cnt1", (nb, prm.f1), dev)
+    need(k1_keys, "k1", (nb, prm.f1, prm.cap1), dev)
+    need(p1, "p1", (nb, prm.f1, prm.cap1), dev)
+    need(cnt1, "cnt1", (nb, prm.f1), dev)
     lib = build.load()
     out_k = torch.empty((prm.f1, nbg, prm.f2, prm.cap2), dtype=torch.int32,
                         device=dev)
     out_p = None if p1 is None else torch.empty_like(out_k)
     cnt = torch.empty((prm.f1, nbg, prm.f2), dtype=torch.int32, device=dev)
     ovf = torch.zeros((), dtype=torch.int64, device=dev)
-    err = lib.rho3_k2(_ptr(k1_keys), _ptr(p1), _ptr(cnt1), prm.f1,
+    err = lib.rho3_k2(ptr(k1_keys), ptr(p1), ptr(cnt1), prm.f1,
                       prm.group, prm.cap1, prm.f2, nbg, _f32(scale),
-                      prm.cap2, _ptr(out_k), _ptr(out_p), _ptr(cnt),
-                      _ptr(ovf), _stream(dev))
+                      prm.cap2, ptr(out_k), ptr(out_p), ptr(cnt),
+                      ptr(ovf), stream(dev))
     build.check(lib, err, "rho3 K2")
     LAUNCHES["K2"] += 1
     return out_k, out_p, cnt, ovf
@@ -349,13 +360,13 @@ _SMEM_LIMIT = 232448  # bytes of shared memory one CTA can have on sm_90
 
 def k3(k2_keys, p2, cnt2):
     """K3: region join, count + checksum (see k3_plain)."""
-    if not _on_cuda(k2_keys):
+    if not on_cuda(k2_keys):
         return k3_plain(k2_keys, p2, cnt2)
     dev = k2_keys.device
     f1, nbg, f2, cap2 = k2_keys.shape
-    _need(k2_keys, "k2", (f1, nbg, f2, cap2), dev)
-    _need(p2, "p2", (f1, nbg, f2, cap2), dev)
-    _need(cnt2, "cnt2", (f1, nbg, f2), dev)
+    need(k2_keys, "k2", (f1, nbg, f2, cap2), dev)
+    need(p2, "p2", (f1, nbg, f2, cap2), dev)
+    need(cnt2, "cnt2", (f1, nbg, f2), dev)
     lib = build.load()
     if cap2 > lib.rho3_k3_max_cap():
         raise ValueError(f"fine slots of {cap2} exceed K3's "
@@ -365,11 +376,43 @@ def k3(k2_keys, p2, cnt2):
                          "than a CTA has")
     matches = torch.zeros((), dtype=torch.int64, device=dev)
     checksum = torch.zeros((), dtype=torch.int32, device=dev)
-    err = lib.rho3_k3(_ptr(k2_keys), _ptr(p2), _ptr(cnt2), f1, nbg, f2, cap2,
-                      _ptr(matches), _ptr(checksum), _stream(dev))
+    err = lib.rho3_k3(ptr(k2_keys), ptr(p2), ptr(cnt2), f1, nbg, f2, cap2,
+                      ptr(matches), ptr(checksum), stream(dev))
     build.check(lib, err, "rho3 K3")
     LAUNCHES["K3"] += 1
     return matches, checksum.long() & _U32
+
+
+def k3m(k2_keys, p2, cnt2, inv: int):
+    """K3M: region join with materialized columns (see k3m_plain)."""
+    if not on_cuda(k2_keys):
+        return k3m_plain(k2_keys, p2, cnt2, inv)
+    dev = k2_keys.device
+    f1, nbg, f2, cap2 = k2_keys.shape
+    need(k2_keys, "k2", (f1, nbg, f2, cap2), dev)
+    if p2 is None:
+        raise ValueError("K3M needs the payloads")
+    need(p2, "p2", (f1, nbg, f2, cap2), dev)
+    need(cnt2, "cnt2", (f1, nbg, f2), dev)
+    lib = build.load()
+    if cap2 > lib.rho3_k3_max_cap():
+        raise ValueError(f"fine slots of {cap2} exceed K3M's "
+                         f"{lib.rho3_k3_max_cap()}")
+    if lib.rho3_k3_smem(cap2, True) > _SMEM_LIMIT:
+        raise ValueError(f"fine slots of {cap2} need more shared memory "
+                         "than a CTA has")
+    n = k2_keys.numel()
+    ok = torch.empty((n,), dtype=torch.int32, device=dev)
+    orp = torch.empty_like(ok)
+    osp = torch.empty_like(ok)
+    matches = torch.zeros((), dtype=torch.int64, device=dev)
+    checksum = torch.zeros((), dtype=torch.int32, device=dev)
+    err = lib.rho3_k3m(ptr(k2_keys), ptr(p2), ptr(cnt2), f1, nbg, f2,
+                       cap2, inv, ptr(ok), ptr(orp), ptr(osp),
+                       ptr(matches), ptr(checksum), stream(dev))
+    build.check(lib, err, "rho3 K3M")
+    LAUNCHES["K3M"] += 1
+    return matches, checksum.long() & _U32, ok, orp, osp
 
 
 # ---------------------------------------------------------------------------
@@ -394,6 +437,19 @@ def route_2level(packed, pay, prm: Rho3Params, with_payload: bool,
     return k2k, k2p, cnt2, nb // prm.group, ovf1 + ovf2
 
 
+def _partition_2level(rk, rp, sk, sp, prm: Rho3Params, salt: int,
+                      with_payload: bool, scale):
+    """Pack R and S under `salt` and route them into fine slots.  Returns
+    (k2, p2, cnt2, overflow + alias count)."""
+    key = torch.cat([rk, sk])
+    tag = torch.cat([torch.zeros_like(rk), torch.ones_like(sk)])
+    packed, alias = pack_keys(key, tag, salt)
+    pay = torch.cat([rp, sp]) if with_payload else None
+    k2k, k2p, cnt2, _, ovf = route_2level(packed, pay, prm, with_payload,
+                                          scale=scale)
+    return k2k, k2p, cnt2, ovf + alias
+
+
 def rho_join_count_v3(rk, rp, sk, sp, prm: Rho3Params = Rho3Params(),
                       salt: int = HASH_C, with_checksum: bool = True,
                       scale=None):
@@ -405,12 +461,39 @@ def rho_join_count_v3(rk, rp, sk, sp, prm: Rho3Params = Rho3Params(),
     callers retry with another odd `salt` or use the exact core.
 
     with_checksum=False runs the keys-only pipeline: no payload moves, and
-    the checksum is 0."""
-    key = torch.cat([rk, sk])
-    tag = torch.cat([torch.zeros_like(rk), torch.ones_like(sk)])
-    packed, alias = pack_keys(key, tag, salt)
-    pay = torch.cat([rp, sp]) if with_checksum else None
-    k2k, k2p, cnt2, _, ovf = route_2level(packed, pay, prm, with_checksum,
-                                          scale=scale)
+    the checksum is 0; `sp` is not read then."""
+    k2k, k2p, cnt2, ovf = _partition_2level(rk, rp, sk, sp, prm, salt,
+                                            with_checksum, scale)
     m, c = k3(k2k, k2p, cnt2)
-    return m, c, ovf + alias
+    return m, c, ovf
+
+
+def _modinv_pow2(salt: int, bits: int = 30) -> int:
+    """Inverse of an odd multiplier mod 2^bits by 2-adic Newton steps, in
+    int32 arithmetic as the reference computes it."""
+    def i32(x):
+        x &= 0xFFFFFFFF
+        return x - (1 << 32) if x >= (1 << 31) else x
+
+    inv = salt = i32(salt)
+    for _ in range(5):
+        inv = i32(inv * i32(2 - i32(salt * inv)))
+    return inv & ((1 << bits) - 1)
+
+
+def rho_join_materialize_v3(rk, rp, sk, sp, prm: Rho3Params = Rho3Params(),
+                            salt: int = HASH_C, scale=None):
+    """Fused two-level fixed-slot RHO join with MATERIALIZED output columns.
+
+    Returns (matches, checksum, out_key, out_rpay, out_spay, overflow).
+    The columns are REGION-CHUNKED with holes, f1*nbg*f2*cap2 long (the
+    reference's length): every matched S row appears exactly once as
+    (key, R payload, S payload), at its own position of K2's fine-slot
+    layout; every other position carries the sentinel key -3 (never a real
+    key) and zero payloads.  Consumers iterate it (the sentinel never
+    matches in a further join) or compact it with
+    ops/mergejoin.compact_matches.  Payloads always move."""
+    k2k, k2p, cnt2, ovf = _partition_2level(rk, rp, sk, sp, prm, salt, True,
+                                            scale)
+    m, c, ok, orp, osp = k3m(k2k, k2p, cnt2, _modinv_pow2(salt))
+    return m, c, ok, orp, osp, ovf

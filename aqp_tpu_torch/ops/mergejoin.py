@@ -7,7 +7,8 @@
 
 For unique R keys this is the exact join.  The `_general` variants count
 every (R, S) pair, for any R multiplicity.  This is the oracle and the last
-rung of RHO's ladder, on every device.
+rung of RHO's ladder, on every device, for counts and (through
+`merge_join_materialize`) for materialized output.
 
 Packing and sums run in int64: a key may be any int32 (the reference packs
 in int32 and needs |key| < 2^30), and the checksum is summed exactly and
@@ -27,6 +28,14 @@ _U32 = 0xFFFFFFFF
 class JoinCounts(NamedTuple):
     matches: torch.Tensor   # 0-dim int64
     checksum: torch.Tensor  # 0-dim int64 in [0, 2^32)
+
+
+class JoinMaterialized(NamedTuple):
+    matches: torch.Tensor   # 0-dim int64
+    checksum: torch.Tensor  # 0-dim int64 in [0, 2^32)
+    key: torch.Tensor       # int32 (capacity,); holes keyed -3
+    r_payload: torch.Tensor
+    s_payload: torch.Tensor
 
 
 def _packed(r_key: torch.Tensor, s_key: torch.Tensor) -> torch.Tensor:
@@ -70,6 +79,40 @@ def merge_join_count(r_key, r_payload, s_key, s_payload) -> JoinCounts:
     match = ~is_r & (prop_key == key)
     ck = torch.where(match, (_u32(prop_pay) + _u32(pay)) & _U32, 0)
     return JoinCounts(match.sum(), ck.sum() & _U32)
+
+
+def compact_matches(hit, key, r_payload, s_payload, capacity: int
+                    ) -> JoinMaterialized:
+    """Compact the rows where `hit` into a fixed-capacity materialized
+    result: live rows first, in their order (a stable sort by !hit), cut or
+    zero-padded to `capacity`; past them key -3 and payloads 0 (-3 is never
+    a real key, so the output can feed a further join).  Dense consumers
+    use it on region-chunked output."""
+    matches = hit.sum()
+    ck = torch.where(hit, (_u32(r_payload) + _u32(s_payload)) & _U32, 0)
+    order = torch.argsort((~hit).to(torch.int8), stable=True)
+    cols = [c[order].to(torch.int32)[:capacity]
+            for c in (key, r_payload, s_payload)]
+    pad = capacity - cols[0].numel()
+    if pad > 0:
+        cols = [torch.cat([c, c.new_zeros(pad)]) for c in cols]
+    live = torch.arange(capacity, device=hit.device) < matches
+    out_k = torch.where(live, cols[0], -3)
+    out_rp = torch.where(live, cols[1], 0)
+    out_sp = torch.where(live, cols[2], 0)
+    return JoinMaterialized(matches, ck.sum() & _U32, out_k, out_rp, out_sp)
+
+
+def merge_join_materialize(r_key, r_payload, s_key, s_payload,
+                           capacity: int) -> JoinMaterialized:
+    """Materialized join output (key, r_payload, s_payload) in the
+    compact_matches layout.  Unique R keys."""
+    pk, pay = _sorted_union(r_key, r_payload, s_key, s_payload)
+    is_r = (pk & 1) == 0
+    key = pk >> 1
+    prop_key, prop_pay = _propagate(is_r, key, pay)
+    match = ~is_r & (prop_key == key)
+    return compact_matches(match, key, prop_pay, pay, capacity)
 
 
 def merge_join_count_keys(r_key, s_key) -> JoinCounts:

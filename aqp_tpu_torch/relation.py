@@ -50,9 +50,20 @@ class Relation:
 
 @dataclasses.dataclass
 class JoinResult:
-    """Result of a count join: `matches` and `checksum` as 0-dim int64
+    """Result of a join: exact `matches` and `checksum` as 0-dim int64
     tensors (the checksum in [0, 2^32): sum of r_payload + s_payload over
-    the matches, mod 2^32).
+    the matches, mod 2^32), and optionally materialized output columns.
+
+    Materialized columns are fixed-capacity and CHUNKED: exactly `matches`
+    rows are live, and a hole carries the sentinel key -3 (never a real
+    key) with zero payloads.  The exact core and the dense path emit live
+    rows first, or in place (holes where S rows did not match); the rho3
+    materializer emits region-chunked holes
+    (ops/kernels/rho3.rho_join_materialize_v3), the analog of the
+    reference's spliced per-thread chunk lists, whose consumers likewise
+    iterate chunks rather than assume density.  A further join accepts -3
+    directly (it can never match); dense consumers compact with
+    ops/mergejoin.compact_matches.
 
     `overflow` is the deferred-validation channel (JoinConfig.defer): the
     pipeline's device-resident overflow counter, None once validated.  A
@@ -61,4 +72,11 @@ class JoinResult:
 
     matches: torch.Tensor
     checksum: torch.Tensor
+    key: Optional[torch.Tensor] = None
+    r_payload: Optional[torch.Tensor] = None
+    s_payload: Optional[torch.Tensor] = None
     overflow: Optional[torch.Tensor] = None
+
+    @property
+    def materialized(self) -> bool:
+        return self.key is not None

@@ -5,11 +5,14 @@
 Phases, each printed on one line with its elapsed seconds:
   1. device: a CUDA card is required; its name and power limit are printed
      as nvidia-smi reports them;
-  2. build: every kernel is compiled from aqp_tpu_torch/csrc by one nvcc
-     call (no PyTorch headers, no ninja, no network);
-  3. kernels: K1, K2 and K3 against their plain PyTorch versions on the
-     card, at the default and at a small geometry, keys-only and with
-     payloads: exact equality;
+  2. build: every kernel is compiled from aqp_tpu_torch/csrc, one nvcc
+     process per source started together, then one link (no PyTorch
+     headers, no ninja, no network);
+  3. kernels: K1, K2, K3 and K3M against their plain PyTorch versions on
+     the card, at the default and at a small geometry (K3M also at the skew
+     tier's residual geometry), keys-only and with payloads; the window
+     compactor (key + payload and keys-only) and the segment scatters at
+     w=512 with a cutting and a non-cutting keep fraction: exact equality;
   4. the slice at full width: run_join("RHO") keys-only and checksummed and
      engine.rho_join_count_fused on |R| = 13,107,200 dense PK keys and
      |S| = 52,428,800 tiled FK keys with seeded random payloads (bench.py's
@@ -17,11 +20,23 @@ Phases, each printed on one line with its elapsed seconds:
      core's, and every kernel must have been launched; then ms per call;
   5. each kernel at the shapes of phase 4: time, plain version's time,
      bound, and exact agreement;
-  6. the ladder: a duplicate-heavy S overflows every salt and must get the
-     exact core's answer.
-Then one JSON line with the kernels' numbers, and last the result line
-{"ok": true, "device": {...}}.  Any failure exits non-zero; a watchdog
-ends a run that hangs.
+  6. the ladder: one key on a quarter of S is served by the heavy-split
+     skew tier; 80 keys of 17,000 rows each overflow every salt and the skew
+     tier, and must get the exact core's answer;
+  7. materialize at full width: run_join("RHO", materialize=True) and
+     engine.rho_join_materialize_fused on phase 4's relations: matches ==
+     |S|, overflow 0, checksum and the live (key, R payload, S payload)
+     multiset equal to the exact core's; K3M timed at its shapes;
+  8. skew at full width: S = 52,428,800 Zipf keys over R's 13,107,200 keys
+     at z = 1.5 and 1.0 (experiments/run_r5_studies.py's study): the plan,
+     run_join("RHO") keys-only and checksummed (and materialize at z = 1.5)
+     equal to the exact core, with the compactor and scatter launched where
+     the plan compacts; the compactor (both forms) and the scatters timed
+     at z = 1.5.
+Each of phases 4, 7 and 8 sets the launch counts to 0 just before it and
+reads them just after.  Then one JSON line with the kernels' numbers, and
+last the result line {"ok": true, "device": {...}}.  Any failure exits
+non-zero; a watchdog ends a run that hangs.
 """
 
 import faulthandler
@@ -37,21 +52,40 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from aqp_tpu_torch.config import JoinConfig  # noqa: E402
-from aqp_tpu_torch.data import create_relation_fk, create_relation_pk  # noqa: E402
+from aqp_tpu_torch.data import (  # noqa: E402
+    create_relation_fk, create_relation_pk, create_relation_zipf)
 from aqp_tpu_torch import engine  # noqa: E402
+from aqp_tpu_torch.joins import skewtier  # noqa: E402
 from aqp_tpu_torch.joins.api import run_join  # noqa: E402
 from aqp_tpu_torch.ops import mergejoin  # noqa: E402
-from aqp_tpu_torch.ops.kernels import build, rho3  # noqa: E402
+from aqp_tpu_torch.ops.kernels import (  # noqa: E402
+    build, compact, lanecompact, rho3)
 from aqp_tpu_torch.relation import Relation  # noqa: E402
 
 NR, NS = 13_107_200, 52_428_800      # bench.py's headline workload
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory rate
 REPS = 5
 T0 = time.perf_counter()
-SOURCE = "aqp_tpu_torch/csrc/rho3.cu"
+SOURCE = {"K1": "aqp_tpu_torch/csrc/rho3.cu",
+          "K2": "aqp_tpu_torch/csrc/rho3.cu",
+          "K3": "aqp_tpu_torch/csrc/rho3.cu",
+          "K3M": "aqp_tpu_torch/csrc/rho3.cu",
+          "compact_windows": "aqp_tpu_torch/csrc/lanecompact.cu",
+          "scatter_segments": "aqp_tpu_torch/csrc/compact.cu",
+          "scatter_segments_one": "aqp_tpu_torch/csrc/compact.cu"}
 REPLACES = {"K1": "aqp_tpu/ops/pallas/rho3.py:212",
             "K2": "aqp_tpu/ops/pallas/rho3.py:250",
-            "K3": "aqp_tpu/ops/pallas/rho3.py:300"}
+            "K3": "aqp_tpu/ops/pallas/rho3.py:300",
+            "K3M": "aqp_tpu/ops/pallas/rho3.py:343",
+            "compact_windows": "aqp_tpu/ops/pallas/lanecompact.py:209",
+            "scatter_segments": "aqp_tpu/ops/pallas/compact.py:157",
+            "scatter_segments_one": "aqp_tpu/ops/pallas/compact.py:299"}
+COUNTERS = (rho3.LAUNCHES, lanecompact.LAUNCHES, compact.LAUNCHES)
+W = 512                              # the compactor's window, in rows
+# the compaction keeps lo <= key <= hi: every key but the input pad
+KEEP_RANGE = (lanecompact.INT32_MIN + 1, lanecompact.PAD_R_INPUT - 1)
+KEYS_ONLY_B5 = "compact_windows keys-only"
+DEV = "cuda"
 SMALL_GEOM = rho3.Rho3Params(block_rows=128, slot_rows=8, f1=20, f2=4,
                              kd_slot_rows=16)
 
@@ -133,6 +167,35 @@ def kernel_bytes(name, args, out) -> int:
 
 PLAIN = {"K1": rho3.k1_plain, "K2": rho3.k2_plain, "K3": rho3.k3_plain}
 KERNEL = {"K1": rho3.k1, "K2": rho3.k2, "K3": rho3.k3}
+INV = rho3._modinv_pow2(rho3.HASH_C)
+U32 = 0xFFFFFFFF
+
+
+def reset_launches() -> None:
+    for counter in COUNTERS:
+        for k in counter:
+            counter[k] = 0
+
+
+def read_launches() -> dict:
+    out = {}
+    for counter in COUNTERS:
+        out.update(counter)
+    return out
+
+
+def kernel_row(name, err, k_ms, p_ms, bound_ms, library_ms=None,
+               library_call=None) -> dict:
+    """One entry of the kernels line; its launches are filled in from the
+    main path's run."""
+    row = {"name": name, "route": "cuda", "source": SOURCE[name],
+           "replaces": REPLACES[name], "launches": None,
+           "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+           "bound_ms": bound_ms, "bound_by": "bytes",
+           "library_ms": library_ms}
+    if library_call:
+        row["library_call"] = library_call
+    return row
 
 
 def check_kernels(rk, rp, sk, sp, prm, with_payload) -> None:
@@ -149,12 +212,129 @@ def check_kernels(rk, rp, sk, sp, prm, with_payload) -> None:
         err = max_abs_err(got, want)
         require(err == 0, f"{name} differs from its plain version by {err}"
                 f" ({prm}, payload={with_payload})")
+    if with_payload:
+        args, _ = stages["K3"]
+        got = rho3.k3m(*args, INV)
+        want = rho3.k3m_plain(*args, INV)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        require(err == 0, f"K3M differs from its plain version by {err} "
+                f"({prm})")
+
+
+def compaction_inputs(n, drop, seed):
+    """n keys of which a fraction `drop` are the input pad, and payloads."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    key = torch.randint(0, 1 << 20, (n,), generator=gen, device=DEV,
+                        dtype=torch.int32)
+    pay = torch.randint(-(1 << 31), 1 << 31, (n,), generator=gen,
+                        device=DEV, dtype=torch.int64).int()
+    pad = torch.rand(n, generator=gen, device=DEV) < drop
+    return torch.where(pad, lanecompact.PAD_S_INPUT, key), pay
+
+
+def compaction_stages(key, pay, keep_frac, cap_rows):
+    """The compactor's and the scatters' inputs on one column: returns
+    {name: (kernel args, kernel fn, plain fn)} for compact_windows (key +
+    payload, as compact_kp_fast calls it, and keys-only, as compact_k_fast
+    does), scatter_segments and scatter_segments_one."""
+    ow = lanecompact.out_w_for(W, keep_frac)
+    fills = (lanecompact.PAD_S_INPUT, 0)
+    b5 = (key, [key, pay], *KEEP_RANGE, W, fills, ow)
+    b5k = (key, [key], *KEEP_RANGE, W, fills[:1], ow)
+    blocks, counts = lanecompact._compact_windows(*b5)
+    keys_blocks, _ = lanecompact._compact_windows(*b5k)
+    desc, _, ovf = lanecompact._segments(counts, ow, cap_rows)
+    nb = counts.numel()
+    flat = [b.view(nb * ow, 128) for b in blocks]
+    b6a = (*flat, *desc, nb, cap_rows + 1, fills[0])
+    b6b = (keys_blocks[0].view(nb * ow, 128), *desc, nb, cap_rows + 1,
+           fills[0])
+
+    def plain6a(ks, ps, soff, doff, sz, nseg, out_rows, fill):
+        return compact.scatter_segments_plain([ks, ps], soff, doff, sz,
+                                              out_rows, fill)
+
+    def plain6b(ks, soff, doff, sz, nseg, out_rows, fill):
+        return compact.scatter_segments_plain([ks], soff, doff, sz,
+                                              out_rows, fill)[0]
+
+    return {"compact_windows": (b5, lanecompact._compact_windows,
+                                lanecompact.compact_windows_plain),
+            KEYS_ONLY_B5: (b5k, lanecompact._compact_windows,
+                           lanecompact.compact_windows_plain),
+            "scatter_segments": (b6a, compact.scatter_segments, plain6a),
+            "scatter_segments_one": (b6b, compact.scatter_segments_one,
+                                     plain6b)}, counts, ow, int(ovf)
+
+
+def as_list(out):
+    return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
+def flat_outputs(name, out):
+    if name.startswith("compact_windows"):
+        blocks, counts = out
+        return [*blocks, counts]
+    return as_list(out)
+
+
+def check_compaction(n, drop, keep_frac, seed, want_cut) -> None:
+    key, pay = compaction_inputs(n, drop, seed)
+    need = -(-int((key < lanecompact.PAD_R_INPUT).sum()) // 128)
+    stages, counts, ow, ovf = compaction_stages(key, pay, keep_frac,
+                                                need + 1024)
+    cut = int((counts.long() > ow * 128).sum())
+    require((cut > 0) == want_cut and (ovf > 0) == want_cut,
+            f"compaction at drop={drop}, keep_frac={keep_frac}: {cut} "
+            f"windows cut, overflow {ovf}")
+    for name, (args, kernel, plain) in stages.items():
+        got = flat_outputs(name, kernel(*args))
+        want = flat_outputs(name, plain(*args))
+        torch.cuda.synchronize()
+        if not name.startswith("compact_windows"):  # callers drop the last row
+            got, want = [g[:-1] for g in got], [w[:-1] for w in want]
+        err = max_abs_err(got, want)
+        require(err == 0, f"{name} differs from its plain version by {err}"
+                f" (drop={drop}, keep_frac={keep_frac})")
+
+
+def live_rows(key, r_pay, s_pay):
+    """The live (key, R payload, S payload) rows of a materialized result,
+    in one canonical order: equal outputs give equal tensors."""
+    live = key != -3
+    k = key[live].long()
+    rp = r_pay[live].long() & U32
+    packed = (k << 32) | (s_pay[live].long() & U32)
+    order = torch.argsort(rp, stable=True)
+    order = order[torch.argsort(packed[order], stable=True)]
+    return packed[order], rp[order]
+
+
+def same_live_rows(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(live_rows(*a),
+                                                 live_rows(*b)))
 
 
 def seeded(nr, ns, seed):
-    r = create_relation_pk(nr, seed=seed, random_payload=True)
-    s = create_relation_fk(ns, nr, seed=seed + 1, random_payload=True)
+    r = create_relation_pk(nr, seed=seed, random_payload=True, device=DEV)
+    s = create_relation_fk(ns, nr, seed=seed + 1, random_payload=True,
+                           device=DEV)
     return r, s
+
+
+def ladder_relations(seed):
+    """R = 1M dense keys; S = 80 of them, 17,000 rows each, shuffled: more
+    heavy keys than the skew tier's 64 candidates, each too many rows for
+    a fine slot even at the residual geometry."""
+    rl, _ = seeded(1 << 20, 4, seed)
+    gen = torch.Generator(device=DEV).manual_seed(seed + 7)
+    keys = torch.randperm(1 << 20, generator=gen, device=DEV)[:80] + 1
+    sk = keys.repeat_interleave(17_000)
+    sk = sk[torch.randperm(sk.numel(), generator=gen, device=DEV)]
+    sp = torch.randint(-(1 << 31), 1 << 31, sk.shape, generator=gen,
+                       device=DEV, dtype=torch.int64).int()
+    return rl, Relation(key=sk.int(), payload=sp)
 
 
 def main() -> int:
@@ -180,27 +360,34 @@ def main() -> int:
 
     # 3. kernels against their plain versions, moderate sizes
     # (the small geometry's slots only hold a small input)
-    for prm, nr in ((rho3.Rho3Params(), 1 << 20), (SMALL_GEOM, 1 << 14)):
+    for prm, nr in ((rho3.Rho3Params(), 1 << 20), (SMALL_GEOM, 1 << 14),
+                    (skewtier._skew_prm(), 1 << 20)):
         r, s = seeded(nr, 4 * nr, seed=101)
         for with_payload in (False, True):
             check_kernels(r.key, r.payload, s.key, s.payload, prm,
                           with_payload)
     # duplicate R keys: K3's rule for which R copy answers must agree too
-    gen = torch.Generator(device="cuda").manual_seed(202)
-    rk, sk = (torch.randint(1, 1 << 19, (n,), generator=gen, device="cuda",
+    gen = torch.Generator(device=DEV).manual_seed(202)
+    rk, sk = (torch.randint(1, 1 << 19, (n,), generator=gen, device=DEV,
                             dtype=torch.int32) for n in (1 << 20, 4 << 20))
     rp, sp = (torch.randint(-(1 << 31), 1 << 31, (n,), generator=gen,
-                            device="cuda", dtype=torch.int64).int()
+                            device=DEV, dtype=torch.int64).int()
               for n in (1 << 20, 4 << 20))
     for with_payload in (False, True):
         check_kernels(rk, rp, sk, sp, rho3.Rho3Params(), with_payload)
-    say("kernels: K1, K2, K3 equal their plain versions (default and "
-        "small geometry, unique and duplicate R keys, keys-only and with "
-        "payloads)")
+    # the compactor and the scatters at w=512: windows cut and not cut
+    for drop, keep_frac, cut in ((0.5, None, False), (0.9, 0.1, False),
+                                 (0.5, 0.1, True)):
+        check_compaction((4 << 20) + 77, drop, keep_frac, 303, cut)
+    say("kernels: K1, K2, K3, K3M, compact_windows, scatter_segments and "
+        "scatter_segments_one equal their plain versions (default, small "
+        "and residual geometry, unique and duplicate R keys, keys-only and "
+        "with payloads; windows cut and not cut)")
 
     # a small input against a plain dictionary-free numpy oracle
     rs, ss = seeded(4096, 16384, seed=7)
-    res, _ = run_join(rs, ss, "RHO", JoinConfig(dense_path=False))
+    res, _ = run_join(rs, ss, "RHO", JoinConfig(dense_path=False),
+                      device=DEV)
     rk, rp = rs.key.cpu().numpy(), rs.payload.cpu().numpy()
     sk, sp = ss.key.cpu().numpy(), ss.payload.cpu().numpy()
     order = np.argsort(rk)
@@ -215,17 +402,18 @@ def main() -> int:
     relR, relS = seeded(NR, NS, seed=11111)
     torch.cuda.synchronize()
     say(f"data: |R| = {NR}, |S| = {NS} on the card")
-    for k in rho3.LAUNCHES:
-        rho3.LAUNCHES[k] = 0
+    reset_launches()
     keys_res, _ = run_join(relR, relS, "RHO", JoinConfig(checksum=False))
     sum_res, _ = run_join(relR, relS, "RHO", JoinConfig())
     fm, fc, fovf = engine.rho_join_count_fused(relR.key, relR.payload,
                                                relS.key, relS.payload)
     torch.cuda.synchronize()
-    launches = dict(rho3.LAUNCHES)
+    launches = read_launches()
     say(f"main path launches: {launches}")
-    require(all(v > 0 for v in launches.values()),
+    require(all(launches[k] > 0 for k in ("K1", "K2", "K3")),
             f"a kernel was not launched on the main path: {launches}")
+    require(skewtier.skew_plan(relS.key) == (False, 0),
+            "uniform keys were planned as skewed")
     exact = mergejoin.merge_join_count(relR.key, relR.payload, relS.key,
                                        relS.payload)
     require(int(exact.matches) == NS, "exact core: matches != |S|")
@@ -244,8 +432,8 @@ def main() -> int:
                        ("checksummed", JoinConfig())):
         ms = cuda_ms(lambda: run_join(relR, relS, "RHO", cfg), REPS)
         slice_ms[label] = ms
-        say(f"run_join RHO {label}: {ms:.3f} ms/call, "
-            f"{(NR + NS) / ms / 1e3:.1f} M rows/s")
+        say(f"run_join RHO {label} (skew_plan cached in front): {ms:.3f} "
+            f"ms/call, {(NR + NS) / ms / 1e3:.1f} M rows/s")
     ms = cuda_ms(lambda: engine.rho_join_count_fused(
         relR.key, relR.payload, relS.key, relS.payload), REPS)
     say(f"engine.rho_join_count_fused: {ms:.3f} ms/call, "
@@ -265,7 +453,7 @@ def main() -> int:
                       "fused_ms": ms, "pack_ms": pack_ms}), flush=True)
 
     # 5. each kernel at the main path's shapes
-    rows = []
+    rows = {}
     for with_payload in (False, True):
         _, stages = stage_inputs(relR.key, relR.payload, relS.key,
                                  relS.payload, rho3.Rho3Params(),
@@ -282,49 +470,348 @@ def main() -> int:
             k_ms = cuda_ms(lambda: KERNEL[name](*args), REPS)
             p_ms = cuda_ms(lambda: PLAIN[name](*args), 1)
             bound = kernel_bytes(name, args, out) / HBM_BYTES_PER_S * 1e3
-            row = {"name": name, "route": "cuda", "source": SOURCE,
-                   "replaces": REPLACES[name],
-                   "launches": launches[name], "max_abs_err": err,
-                   "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
-                   "bound_by": "bytes", "library_ms": None}
+            row = kernel_row(name, err, k_ms, p_ms, bound)
             say(f"{name} {'payload' if with_payload else 'keys-only'}: "
                 f"{k_ms:.3f} ms (plain {p_ms:.3f} ms, bound {bound:.3f} "
                 "ms)")
             if with_payload:
+                row["launches"] = launches[name]
                 print(json.dumps({"with_payload": row}), flush=True)
             else:
-                rows.append(row)
+                rows[name] = row
+        if with_payload:   # K3M takes K3's inputs with payloads
+            args = (*stages["K3"][0], INV)
+            out = rho3.k3m(*args)
+            want = rho3.k3m_plain(*args)
+            torch.cuda.synchronize()
+            err = max_abs_err(out, want)
+            require(err == 0, "K3M differs from its plain version at the "
+                    "headline shape")
+            del want
+            k_ms = cuda_ms(lambda: rho3.k3m(*args), REPS)
+            p_ms = cuda_ms(lambda: rho3.k3m_plain(*args), 1)
+            k2k, k2p, cnt2 = args[:3]
+            nbytes_ = (int(cnt2.sum()) * 8 + nbytes(cnt2) + 16
+                       + 3 * k2k.numel() * 4)
+            bound = nbytes_ / HBM_BYTES_PER_S * 1e3
+            rows["K3M"] = kernel_row("K3M", err, k_ms, p_ms, bound)
+            say(f"K3M payload: {k_ms:.3f} ms (plain {p_ms:.3f} ms, bound "
+                f"{bound:.3f} ms)")
+            del out
         del stages
         torch.cuda.synchronize()
 
-    # 6. the ladder: one key on a quarter of S overflows every salt
+    # 6. the ladder.  One key on a quarter of S: the skew plan hints, and
+    # the heavy-split tier answers with one pipeline run.
     rl, sl = seeded(1 << 20, 4 << 20, seed=303)
     skey = sl.key.clone()
     skey[: skey.numel() // 4] = 77
     sl = Relation(key=skey, payload=sl.payload)
+    reset_launches()
+    res, _ = run_join(rl, sl, "RHO", JoinConfig(dense_path=False))
+    exact = mergejoin.merge_join_count(rl.key, rl.payload, sl.key,
+                                       sl.payload)
+    require(rho3.LAUNCHES["K1"] == 1,
+            f"the skew tier did not answer first: {rho3.LAUNCHES}")
+    require((int(res.matches), int(res.checksum))
+            == (int(exact.matches), int(exact.checksum))
+            and int(res.matches) == sl.num_tuples,
+            "the skew tier's answer != exact core")
+    # 80 heavy keys: every salt and the skew tier overflow
+    rl, sl = ladder_relations(404)
     for salt in rho3.RETRY_SALTS:
         _, _, ovf = rho3.rho_join_count_v3(rl.key, rl.payload, sl.key,
                                            sl.payload, salt=salt)
         require(int(ovf) > 0, "the duplicate-heavy input did not overflow")
-    for k in rho3.LAUNCHES:
-        rho3.LAUNCHES[k] = 0
+    reset_launches()
     res, _ = run_join(rl, sl, "RHO", JoinConfig(dense_path=False))
     exact = mergejoin.merge_join_count(rl.key, rl.payload, sl.key,
                                        sl.payload)
-    require(rho3.LAUNCHES["K1"] == len(rho3.RETRY_SALTS),
-            f"the ladder did not try every salt: {rho3.LAUNCHES}")
+    require(rho3.LAUNCHES["K1"] == len(rho3.RETRY_SALTS) + 1,
+            f"the ladder did not try every tier: {rho3.LAUNCHES}")
     require((int(res.matches), int(res.checksum))
             == (int(exact.matches), int(exact.checksum))
             and int(res.matches) == sl.num_tuples,
             "the ladder's answer != exact core")
-    say("ladder: every salt overflowed, the exact core answered")
+    say("ladder: one heavy key -> the skew tier answered; 80 heavy keys -> "
+        "every salt and the skew tier overflowed, the exact core answered")
+    del rl, sl, skey, res
 
+    # 7. materialize at full width, on phase 4's relations
+    reset_launches()
+    mres, _ = run_join(relR, relS, "RHO", JoinConfig(materialize=True))
+    fused = engine.rho_join_materialize_fused(relR.key, relR.payload,
+                                              relS.key, relS.payload)
     torch.cuda.synchronize()
-    print(json.dumps({"kernels": rows}), flush=True)
+    mat_launches = read_launches()
+    say(f"materialize path launches: {mat_launches}")
+    require(mat_launches["K3M"] > 0, "K3M was not launched")
+    exact = mergejoin.merge_join_materialize(relR.key, relR.payload,
+                                             relS.key, relS.payload, NS)
+    want_rows = (exact.key, exact.r_payload, exact.s_payload)
+    require(int(exact.matches) == NS, "exact core: matches != |S|")
+    require(mres.overflow is None and int(fused[5]) == 0,
+            "materialize: overflow")
+    for label, got in (("run_join", (mres.matches, mres.checksum,
+                                     mres.key, mres.r_payload,
+                                     mres.s_payload)),
+                       ("fused", fused[:5])):
+        require((int(got[0]), int(got[1])) == (NS, int(exact.checksum)),
+                f"materialize {label}: matches/checksum != exact core")
+        require(got[2].numel() == mres.key.numel(),
+                f"materialize {label}: column length")
+        require(same_live_rows(got[2:5], want_rows),
+                f"materialize {label}: live rows != exact core's")
+    out_len = mres.key.numel()
+    del mres, fused, exact, want_rows
+    mat_ms = {}
+    for label, fn in (
+            ("run_join", lambda: run_join(relR, relS, "RHO",
+                                          JoinConfig(materialize=True))),
+            ("fused", lambda: engine.rho_join_materialize_fused(
+                relR.key, relR.payload, relS.key, relS.payload))):
+        mat_ms[label] = cuda_ms(fn, REPS)
+        say(f"materialize {label}: {mat_ms[label]:.3f} ms/call, "
+            f"{(NR + NS) / mat_ms[label] / 1e3:.1f} M rows/s "
+            f"({out_len} output rows per column, holes included)")
+
+    def pack_with_payloads():
+        key = torch.cat([relR.key, relS.key])
+        tag = torch.cat([torch.zeros_like(relR.key),
+                         torch.ones_like(relS.key)])
+        return (rho3.pack_keys(key, tag, rho3.HASH_C),
+                torch.cat([relR.payload, relS.payload]))
+
+    mat_ms["pack_with_payloads"] = cuda_ms(pack_with_payloads, REPS)
+    say(f"pack_keys + payload concatenation (plain PyTorch, before K1): "
+        f"{mat_ms['pack_with_payloads']:.3f} ms/call")
+    print(json.dumps({"materialize": {k: {"ms": v, "mrows_per_s":
+                                          (NR + NS) / v / 1e3}
+                                      for k, v in mat_ms.items()},
+                      "out_len": out_len}), flush=True)
+
+    # 8. skew at full width: Zipf S over R's keys
+    skew_launches = {k: 0 for k in read_launches()}
+    skew_out = {}
+    for z in (1.5, 1.0):
+        zs = create_relation_zipf(NS, NR, z, seed=22222, random_payload=True,
+                                  device=DEV)
+        hinted, cap = skewtier.skew_plan(zs.key)
+        say(f"z={z}: skew_plan hinted={hinted} cap_rows={cap} "
+            f"(fraction {cap * 128 / NS:.4f})")
+        require(hinted or z != 1.5, f"z={z}: not hinted")
+        exact = mergejoin.merge_join_count(relR.key, relR.payload, zs.key,
+                                           zs.payload)
+        runs = [("keys-only", JoinConfig(checksum=False)),
+                ("checksummed", JoinConfig())]
+        if z == 1.5:
+            runs.append(("materialize", JoinConfig(materialize=True)))
+        for label, cfg in runs:
+            # a fresh key tensor has its own plan, as a new relation would
+            s = Relation(key=zs.key.clone(), payload=zs.payload)
+            reset_launches()
+            res, _ = run_join(relR, s, "RHO", cfg)
+            torch.cuda.synchronize()
+            got = read_launches()
+            for k, v in got.items():
+                skew_launches[k] += v
+            want_c = 0 if label == "keys-only" else int(exact.checksum)
+            require((int(res.matches), int(res.checksum))
+                    == (int(exact.matches), want_c),
+                    f"z={z} {label}: result != exact core")
+            if cap and label != "materialize":
+                one = label == "keys-only"
+                require(got["compact_windows"] > 0 and got[
+                    "scatter_segments_one" if one else "scatter_segments"]
+                    > 0, f"z={z} {label}: the compacted tier's kernels "
+                    f"were not launched: {got}")
+            if label == "materialize":
+                require(got["K3M"] > 0, f"z={z}: K3M was not launched")
+                ref = mergejoin.merge_join_materialize(
+                    relR.key, relR.payload, zs.key, zs.payload, NS)
+                require(same_live_rows(
+                    (res.key, res.r_payload, res.s_payload),
+                    (ref.key, ref.r_payload, ref.s_payload)),
+                    f"z={z} materialize: live rows != exact core's")
+                del ref
+            plan_after = skewtier.skew_plan(s.key)
+            del res
+            ms = cuda_ms(lambda: run_join(relR, s, "RHO", cfg), REPS)
+            skew_out[f"z={z} {label}"] = {
+                "ms": ms, "mrows_per_s": (NR + NS) / ms / 1e3,
+                "plan_after": list(plan_after), "launches_first_call": got}
+            say(f"z={z} run_join RHO {label}: {ms:.3f} ms/call, "
+                f"{(NR + NS) / ms / 1e3:.1f} M rows/s; first call "
+                f"launches {got}; plan after it {plan_after}")
+        # the two skew tiers directly, keys-only with R proven dense (the
+        # form experiments/run_r5_studies.py times)
+        for capr in sorted({0, cap}):
+            def tier(capr=capr):
+                return skewtier.skew_fused_count(
+                    relR.key, relR.payload, zs.key, zs.payload,
+                    rho3.RETRY_SALTS[0], with_checksum=False,
+                    resid_cap_rows=capr, r_dense=True)
+            m, _, ovf = tier()
+            ms = cuda_ms(tier, REPS)
+            skew_out[f"z={z} skew_fused_count cap_rows={capr}"] = {
+                "ms": ms, "overflow": int(ovf), "matches": int(m)}
+            say(f"z={z} skew_fused_count keys-only cap_rows={capr}: "
+                f"overflow {int(ovf)}, {ms:.3f} ms/call")
+        if z == 1.5:
+            compaction_rows = time_compaction(relR, zs, cap, rows)
+            skew_out["z=1.5 steps"] = skew_steps(relR, zs, cap)
+        del zs, exact
+        torch.cuda.synchronize()
+    print(json.dumps({"skew": skew_out}), flush=True)
+    say(f"skew path launches: {skew_launches}")
+    rows.update(compaction_rows)
+
+    for name in ("K1", "K2", "K3"):
+        rows[name]["launches"] = launches[name]
+    rows["K3M"]["launches"] = mat_launches["K3M"]
+    for name in ("compact_windows", "scatter_segments",
+                 "scatter_segments_one"):
+        rows[name]["launches"] = skew_launches[name]
+        require(skew_launches[name] > 0, f"{name} was not launched on the "
+                "skew path")
+    torch.cuda.synchronize()
+    print(json.dumps({"kernels": [rows[k] for k in SOURCE]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def skew_steps(relR, zs, cap) -> dict:
+    """ms of each step of the two skew tiers at z = 1.5, keys-only (R
+    proven dense) and checksummed: candidates, R-side statistics, the
+    split pass, the compaction (compacted tier) and the residual
+    pipeline."""
+    steps = {}
+    prm = skewtier._skew_prm()
+    hk = skewtier.heavy_candidates(zs.key)
+    steps["heavy_candidates"] = cuda_ms(
+        lambda: skewtier.heavy_candidates(zs.key), REPS)
+    for label, cs in (("keys-only", False), ("checksummed", True)):
+        if cs:
+            rcnt, rph = skewtier.r_cand_stats(relR.key, relR.payload, hk)
+            pres = (hk >= 0) & (rcnt > 0)
+            steps[f"{label} r_cand_stats"] = cuda_ms(
+                lambda: skewtier.r_cand_stats(relR.key, relR.payload, hk),
+                REPS)
+        else:
+            pres = (hk >= 1) & (hk <= NR)
+            rph = torch.zeros(hk.shape, dtype=torch.int64, device=DEV)
+        _, _, sk_res = skewtier.heavy_split_pass(zs.key, zs.payload, hk,
+                                                 pres, rph, with_pay=cs)
+        steps[f"{label} heavy_split_pass"] = cuda_ms(
+            lambda: skewtier.heavy_split_pass(zs.key, zs.payload, hk, pres,
+                                              rph, with_pay=cs), REPS)
+        steps[f"{label} residual pipeline"] = cuda_ms(
+            lambda: rho3.rho_join_count_v3(relR.key, relR.payload, sk_res,
+                                           zs.payload, prm=prm,
+                                           with_checksum=cs), REPS)
+        kf = min(1.0, cap * 128 / NS)
+        if cs:
+            def squeeze():
+                return lanecompact.compact_kp_fast(
+                    sk_res, zs.payload, cap, keep_frac=kf)
+        else:
+            def squeeze():
+                k, o = lanecompact.compact_k_fast(sk_res, cap, keep_frac=kf)
+                return k, torch.zeros_like(k), o
+        ck, cp, _ = squeeze()
+        steps[f"{label} compaction"] = cuda_ms(squeeze, REPS)
+        steps[f"{label} compacted residual pipeline (overflows)"] = cuda_ms(
+            lambda: rho3.rho_join_count_v3(relR.key, relR.payload, ck, cp,
+                                           prm=prm, with_checksum=cs), REPS)
+    for k, v in steps.items():
+        say(f"z=1.5 step {k}: {v:.3f} ms")
+    return steps
+
+
+def time_compaction(relR, zs, cap, rows) -> dict:
+    """The compactor and the scatters at the z = 1.5 residual's shapes:
+    exact agreement, time, plain time, bound and the one-call equivalent
+    (boolean-mask selection of the same column)."""
+    hk = skewtier.heavy_candidates(zs.key)
+    rcnt, rph = skewtier.r_cand_stats(relR.key, relR.payload, hk)
+    pres = (hk >= 0) & (rcnt > 0)
+    _, _, sk_res = skewtier.heavy_split_pass(zs.key, zs.payload, hk, pres,
+                                             rph)
+    sp = zs.payload
+    keep_frac = min(1.0, cap * 128 / NS)
+    stages, counts, ow, ovf = compaction_stages(sk_res, sp, keep_frac, cap)
+    n = sk_res.numel()
+    nb = counts.numel()
+    lo, hi = KEEP_RANGE
+
+    def select_pair():
+        m = sk_res <= hi
+        return torch.masked_select(sk_res, m), torch.masked_select(sp, m)
+
+    def select_key():
+        return torch.masked_select(sk_res, sk_res <= hi)
+
+    lib_pair = cuda_ms(select_pair, REPS)
+    lib_key = cuda_ms(select_key, REPS)
+    covered = int(stages["scatter_segments"][0][4].long().sum())
+    out_rows = cap + 1
+    kept = (sk_res >= lo) & (sk_res <= hi)
+    out_block = nb * ow * 128 * 4
+    bytes_of = {
+        # the key column is read whole, once, although it is also array 0;
+        # the payload only where a key is kept, in whole 32-byte sectors
+        "compact_windows": n * 4 + 32 * kept_sectors(kept) + 2 * out_block
+        + nb * 4,
+        KEYS_ONLY_B5: n * 4 + out_block + nb * 4,
+        "scatter_segments": 2 * covered * 512 + 2 * out_rows * 512
+        + 3 * nb * 4,
+        "scatter_segments_one": covered * 512 + out_rows * 512 + 3 * nb * 4,
+    }
+    library = {
+        "compact_windows": (lib_pair, "torch.masked_select of key and "
+                            "payload: one call for B5+B6a together"),
+        KEYS_ONLY_B5: (lib_key, "torch.masked_select of the key: one call "
+                       "for B5+B6b together"),
+        "scatter_segments": (lib_pair, "torch.masked_select of key and "
+                             "payload: one call for B5+B6a together"),
+        "scatter_segments_one": (lib_key, "torch.masked_select of the key: "
+                                 "one call for B5+B6b together"),
+    }
+    out = {}
+    for name, (args, kernel, plain) in stages.items():
+        got = flat_outputs(name, kernel(*args))
+        want = flat_outputs(name, plain(*args))
+        torch.cuda.synchronize()
+        if not name.startswith("compact_windows"):
+            got, want = [g[:-1] for g in got], [w[:-1] for w in want]
+        err = max_abs_err(got, want)
+        require(err == 0, f"{name} differs from its plain version at the "
+                "z=1.5 residual's shape")
+        del got, want
+        k_ms = cuda_ms(lambda: kernel(*args), REPS)
+        p_ms = cuda_ms(lambda: plain(*args), 1)
+        bound = bytes_of[name] / HBM_BYTES_PER_S * 1e3
+        out[name] = kernel_row(name.split()[0], err, k_ms, p_ms, bound,
+                               *library[name])
+        say(f"{name} (z=1.5 residual, ow={ow}, {int(counts.sum())} kept, "
+            f"overflow {ovf}): {k_ms:.3f} ms (plain {p_ms:.3f} ms, bound "
+            f"{bound:.3f} ms from {bytes_of[name]} bytes, "
+            f"{library[name][1]}: {library[name][0]:.3f} ms)")
+    keys_only = out.pop(KEYS_ONLY_B5)
+    out["compact_windows"]["keys_only"] = {
+        k: keys_only[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                  "bound_ms", "library_ms", "library_call")}
+    return out
+
+
+def kept_sectors(kept: torch.Tensor) -> int:
+    """32-byte sectors (8 int32 elements) that hold at least one kept
+    element: the least the card can read of a column to fetch those."""
+    pad = -kept.numel() % 8
+    kept = torch.cat([kept, kept.new_zeros(pad)])
+    return int(kept.view(-1, 8).any(1).sum())
 
 
 if __name__ == "__main__":

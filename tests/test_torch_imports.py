@@ -39,7 +39,10 @@ def test_imports_without_jax():
             "sys.modules['aqp_tpu'] = None; "
             "import aqp_tpu_torch, aqp_tpu_torch.engine, "
             "aqp_tpu_torch.joins.api, aqp_tpu_torch.data, "
-            "aqp_tpu_torch.ops.kernels.rho3; print('ok')")
+            "aqp_tpu_torch.ops.kernels.rho3, "
+            "aqp_tpu_torch.ops.kernels.compact, "
+            "aqp_tpu_torch.ops.kernels.lanecompact, "
+            "aqp_tpu_torch.joins.skewtier; print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -60,7 +63,8 @@ def test_entry_points_without_device_raise_when_no_cuda():
     from aqp_tpu_torch import default_device
     from aqp_tpu_torch.data import (create_relation_fk,
                                     create_relation_fk_sel,
-                                    create_relation_pk)
+                                    create_relation_pk,
+                                    create_relation_zipf)
     from aqp_tpu_torch import engine
     from aqp_tpu_torch.joins.api import finalize_join, run_join
     from aqp_tpu_torch.relation import Relation
@@ -72,12 +76,15 @@ def test_entry_points_without_device_raise_when_no_cuda():
         lambda: create_relation_pk(16),
         lambda: create_relation_fk(32, 16),
         lambda: create_relation_fk_sel(32, 16, 50.0),
+        lambda: create_relation_zipf(32, 16, 1.5),
         lambda: Relation.from_numpy(np.arange(4, dtype=np.int32)),
         lambda: run_join(r, r),
         lambda: finalize_join(r, r, None, None),
         lambda: engine.rho_join_count_fused(*cols),
         lambda: engine.rho_join_count_checked(*cols),
         lambda: engine.rho_join_count(*cols),
+        lambda: engine.rho_join_materialize_fused(*cols),
+        lambda: engine.rho_join_materialize(*cols, 128),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -85,8 +92,20 @@ def test_entry_points_without_device_raise_when_no_cuda():
 
 
 def test_kernel_wrappers_reject_other_devices():
-    from aqp_tpu_torch.ops.kernels import rho3
+    from aqp_tpu_torch.ops.kernels import compact, lanecompact, rho3
 
     meta = torch.zeros(8, dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="unsupported device"):
-        rho3.k1(meta, None, 8, rho3.Rho3Params(), 1.0)
+    rows = torch.zeros((4, 128), dtype=torch.int32, device="meta")
+    slots = torch.zeros((2, 1, 2, 128), dtype=torch.int32, device="meta")
+    calls = [
+        lambda: rho3.k1(meta, None, 8, rho3.Rho3Params(), 1.0),
+        lambda: rho3.k3m(slots, slots, meta[:4].view(2, 1, 2), 1),
+        lambda: lanecompact._compact_windows(meta, [meta], 0, 1, 8, (0,)),
+        lambda: compact.scatter_segments(rows, rows, meta[:1], meta[:1],
+                                         meta[:1], 1, 5),
+        lambda: compact.scatter_segments_one(rows, meta[:1], meta[:1],
+                                             meta[:1], 1, 5),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="unsupported device"):
+            call()

@@ -1,8 +1,10 @@
-"""The port's RHO count path as a whole against the JAX package's, on the CPU.
+"""The port's RHO join as a whole against the JAX package's, on the CPU.
 
 Both run_join("RHO") calls get the same relations, made with numpy and
 handed to the port through Relation.from_numpy.  Results are integers and
-must agree exactly.
+must agree exactly; materialized columns are chunked differently by the two
+packages, so their live (key, R payload, S payload) rows are compared as
+multisets.
 """
 
 import numpy as np
@@ -12,15 +14,23 @@ import torch
 
 from aqp_tpu import engine as jengine
 from aqp_tpu.config import JoinConfig as JConfig
+from aqp_tpu.data.generator import _zipf_cdf_lut
 from aqp_tpu.joins.api import run_join as jrun
 from aqp_tpu.relation import Relation as JRelation
 from aqp_tpu_torch import engine as tengine
 from aqp_tpu_torch.config import JoinConfig as TConfig
+from aqp_tpu_torch.joins import radix as tradix
+from aqp_tpu_torch.joins import skewtier as tskew
 from aqp_tpu_torch.joins.api import finalize_join, run_join as trun
 from aqp_tpu_torch.ops.kernels import rho3 as trho3
+from aqp_tpu_torch.relation import JoinResult as TResult
 from aqp_tpu_torch.relation import Relation as TRelation
 
 NR, NS = 4096, 16384
+NS_ZIPF = 1 << 18   # the skew hint needs a long run in a stride-128 sample
+# 80 keys of 17,000 rows each: more heavy keys than the skew tier's 64
+# candidates, and each too many for a fine slot even at the skew geometry
+LADDER_KEYS, LADDER_COPIES = 80, 17_000
 
 
 def _arrays(kind, seed=11):
@@ -33,10 +43,17 @@ def _arrays(kind, seed=11):
         rk = rng.permutation(NR) + 1
         sk = np.concatenate([rng.permutation(NR) + 1
                              for _ in range(NS // NR)])
-        if kind == "skew":   # one key on every S row: every slot overflows
-            sk = np.full(NS, 77)
+        if kind == "zipf":
+            cdf = _zipf_cdf_lut(NR, 1.5).astype(np.float32)
+            u = rng.random(NS_ZIPF, dtype=np.float32)
+            sk = (rng.permutation(NR) + 1)[
+                np.clip(np.searchsorted(cdf, u), 0, NR - 1)]
+        if kind == "ladder":
+            sk = np.repeat(rng.choice(NR, LADDER_KEYS, replace=False) + 1,
+                           LADDER_COPIES)
+            rng.shuffle(sk)
     rp = rng.integers(-(1 << 31), 1 << 31, NR, dtype=np.int64)
-    sp = rng.integers(-(1 << 31), 1 << 31, NS, dtype=np.int64)
+    sp = rng.integers(-(1 << 31), 1 << 31, sk.size, dtype=np.int64)
     return [a.astype(np.int32) for a in (rk, rp, sk, sp)]
 
 
@@ -93,23 +110,156 @@ def test_run_join_defer_then_finalize():
     assert t.matches == want[0]
 
 
-def test_overflow_walks_the_ladder_to_the_exact_core():
-    (jr, js), (tr, ts) = _relations("skew")
-    # every salt overflows on one repeated key
+class _Spy:
+    """Counts the calls of a module attribute, keyword arguments kept."""
+
+    def __init__(self, monkeypatch, module, name):
+        self.calls = []
+        fn = getattr(module, name)
+
+        def wrapped(*args, **kw):
+            self.calls.append(kw)
+            return fn(*args, **kw)
+
+        monkeypatch.setattr(module, name, wrapped)
+
+
+def test_overflow_walks_the_ladder_to_the_exact_core(monkeypatch):
+    (jr, js), (tr, ts) = _relations("ladder")
+    ns = LADDER_KEYS * LADDER_COPIES
+    # every salt overflows, and so does the skew tier
     for salt in trho3.RETRY_SALTS:
         _, _, ovf = trho3.rho_join_count_v3(tr.key, tr.payload, ts.key,
                                             ts.payload, salt=salt)
         assert int(ovf) > 0
-    want = _pair(jrun(jr, js, "RHO", JConfig())[0])
+    _, _, ovf = tskew.skew_fused_count(tr.key, tr.payload, ts.key,
+                                       ts.payload, trho3.RETRY_SALTS[0])
+    assert int(ovf) > 0
+    count = _Spy(monkeypatch, tradix.mergejoin, "merge_join_count")
+    mat = _Spy(monkeypatch, tradix.mergejoin, "merge_join_materialize")
+    jres = jrun(jr, js, "RHO", JConfig())[0]
+    want = _pair(jres)
     got, _ = trun(tr, ts, "RHO", TConfig(dense_path=False), device="cpu")
     assert _pair(got) == want
-    assert want[0] == NS
+    assert want[0] == ns
+    assert len(count.calls) == 1
     # a deferred call reports the overflow; finalize takes the ladder
     cfg = TConfig(defer=True, dense_path=False)
     res, t = trun(tr, ts, "RHO", cfg, device="cpu")
     assert int(res.overflow) > 0
     res, _ = finalize_join(tr, ts, res, t, "RHO", cfg, device="cpu")
     assert _pair(res) == want
+    assert len(count.calls) == 2
+    # the materializing ladder ends at the exact core too
+    jm = jrun(jr, js, "RHO", JConfig(materialize=True))[0]
+    tm, _ = trun(tr, ts, "RHO", TConfig(materialize=True, dense_path=False),
+                 device="cpu")
+    assert len(mat.calls) == 1
+    assert _pair(tm) == _pair(jm) == want
+    assert _live(tm) == _live(jm)
+    assert tm.key.numel() == -(-ns // 128) * 128
+
+
+def _live(res):
+    k, a, b = (np.asarray(x) for x in (res.key, res.r_payload,
+                                       res.s_payload))
+    m = k != -3
+    return sorted(zip(k[m].tolist(), a[m].tolist(), b[m].tolist()))
+
+
+MAT_CASES = [
+    ("fk", {}),                       # the dense path, in place
+    ("fk", {"dense_path": False}),    # rho_join_materialize_v3
+    ("nondense", {}),
+    ("zipf", {"dense_path": False}),  # the hinted skew-split materializer
+    ("fk", {"use_pallas": False, "dense_path": False}),   # the exact core
+]
+
+
+@pytest.mark.parametrize("kind,fields", MAT_CASES,
+                         ids=[f"{k}-{'-'.join(f) or 'default'}"
+                              for k, f in MAT_CASES])
+def test_run_join_rho_materialize_matches_reference(kind, fields,
+                                                    monkeypatch):
+    spy = _Spy(monkeypatch, tradix, "rho_skew_split_materialize")
+    (jr, js), (tr, ts) = _relations(kind)
+    cfg = dict(fields, materialize=True)
+    jres, _ = jrun(jr, js, "RHO", JConfig(**cfg))
+    tres, tt = trun(tr, ts, "RHO", TConfig(**cfg), device="cpu")
+    assert _pair(tres) == _pair(jres)
+    assert tres.materialized and tres.overflow is None
+    assert tt.matches == int(jres.matches)
+    assert _live(tres) == _live(jres)
+    assert int((tres.key != -3).sum()) == int(tres.matches)
+    assert len(spy.calls) == (1 if kind == "zipf" else 0)
+
+
+@pytest.mark.parametrize("checksum", [True, False], ids=["sum", "keys"])
+def test_hinted_count_ladder_on_zipf_keys(checksum, monkeypatch):
+    spy = _Spy(monkeypatch, tradix, "skew_fused_count")
+    (jr, js), (tr, ts) = _relations("zipf")
+    hinted, cap = tskew.skew_plan(ts.key)
+    assert hinted and cap > 0
+    jres, _ = jrun(jr, js, "RHO", JConfig(checksum=checksum))
+    tres, _ = trun(tr, ts, "RHO", TConfig(checksum=checksum,
+                                          dense_path=False), device="cpu")
+    if checksum:
+        assert _pair(tres) == _pair(jres)
+    else:
+        assert int(tres.matches) == int(jres.matches)
+        assert int(tres.checksum) == 0
+    assert int(tres.matches) == NS_ZIPF
+    # the compacted-residual tier served, and its plan was not demoted
+    assert [c.get("resid_cap_rows", 0) for c in spy.calls] == [cap]
+    assert tskew.skew_plan(ts.key) == (True, cap)
+
+
+def test_deferred_materialize_keeps_its_columns():
+    (jr, js), (tr, ts) = _relations("nondense")
+    want = jrun(jr, js, "RHO", JConfig(materialize=True))[0]
+    cfg = TConfig(defer=True, materialize=True, dense_path=False)
+    res, t = trun(tr, ts, "RHO", cfg, device="cpu")
+    assert t.matches == -1 and res.overflow is not None
+    key = res.key
+    res, t = finalize_join(tr, ts, res, t, "RHO", cfg, device="cpu")
+    assert res.overflow is None and res.key is key
+    assert _pair(res) == _pair(want)
+    assert _live(res) == _live(want)
+    assert t.matches == int(want.matches)
+
+
+def test_finalize_after_overflow_demotes_the_residual_plan():
+    (jr, js), (tr, ts) = _relations("zipf")
+    hinted, cap = tskew.skew_plan(ts.key)
+    assert hinted and cap > 0
+    bad = TResult(matches=torch.zeros((), dtype=torch.int64),
+                  checksum=torch.zeros((), dtype=torch.int64),
+                  overflow=torch.ones((), dtype=torch.int64))
+    res, _ = finalize_join(tr, ts, bad, tradix.PhaseTimer("cpu").t, "RHO",
+                           TConfig(dense_path=False), device="cpu")
+    assert tskew.skew_plan(ts.key) == (True, 0)
+    assert _pair(res) == _pair(jrun(jr, js, "RHO", JConfig())[0])
+
+
+def test_engine_materialize_entry_points_match_reference():
+    rk, rp, sk, sp = _arrays("nondense")
+    jargs = [jnp.asarray(a) for a in (rk, rp, sk, sp)]
+    targs = [torch.from_numpy(a) for a in (rk, rp, sk, sp)]
+    j = jengine.rho_join_materialize_fused(*jargs)
+    t = tengine.rho_join_materialize_fused(*targs, device="cpu")
+    assert int(t[5]) == 0
+    assert (int(t[0]), int(t[1])) == (int(j[0]), int(j[1]))
+    assert _live(TResult(*t[:5])) == _live(TResult(*j[:5]))
+    cap = NS + 128
+    j2 = jengine.rho_join_materialize(*jargs, capacity=cap)
+    t2 = tengine.rho_join_materialize(*targs, cap, device="cpu")
+    assert t2.key.shape == (cap,)
+    assert (int(t2.matches), int(t2.checksum)) == (int(j2.matches),
+                                                   int(j2.checksum))
+    assert _live(TResult(*t2)) == _live(TResult(*j2))
+    # live rows first, holes behind
+    m = int(t2.matches)
+    assert (t2.key[:m] != -3).all() and (t2.key[m:] == -3).all()
 
 
 def test_engine_entry_points_match_reference():
@@ -147,3 +297,19 @@ def test_cpu_run_launches_no_kernel():
     before = dict(trho3.LAUNCHES)
     trun(tr, ts, "RHO", TConfig(dense_path=False), device="cpu")
     assert trho3.LAUNCHES == before
+
+
+def test_dense_proof_is_cached_per_tensor(monkeypatch):
+    from aqp_tpu_torch.joins import dense
+
+    calls = []
+    check = dense._dense_check
+    monkeypatch.setattr(dense, "_dense_check",
+                        lambda t: calls.append(1) or check(t))
+    key = torch.randperm(1000, dtype=torch.int32) + 1
+    assert dense.dense_proof(key) and dense.dense_proof(key)
+    assert len(calls) == 1
+    assert dense.dense_proof(key.clone()) and len(calls) == 2
+    key[0] = 5000                   # an in-place write: proved anew
+    assert not dense.dense_proof(key) and len(calls) == 3
+    assert not dense.dense_proof(key) and len(calls) == 3

@@ -76,3 +76,47 @@ def test_general_equals_propagate_core_for_unique_r():
     b = tmj.merge_join_count_general(*d)
     assert (int(a.matches), int(a.checksum)) == (int(b.matches),
                                                  int(b.checksum))
+
+
+def _rows(k, a, b, n=None):
+    k, a, b = (np.asarray(x)[:n] for x in (k, a, b))
+    return sorted(zip(k.tolist(), a.tolist(), b.tolist()))
+
+
+@pytest.mark.parametrize("capacity", [9000, 4000, 12000],
+                         ids=["exact", "cut", "padded"])
+def test_merge_join_materialize(capacity):
+    """Live rows first (as a multiset: the two sorts order ties
+    differently), then holes keyed -3 with zero payloads; the same length
+    and scalars."""
+    d = _data(4)
+    j = jmj.merge_join_materialize(*map(jnp.asarray, d), capacity)
+    t = tmj.merge_join_materialize(*map(torch.from_numpy, d), capacity)
+    _same(j, t)
+    m = int(t.matches)
+    assert t.key.shape == (capacity,) and t.key.dtype == torch.int32
+    live = min(m, capacity)
+    assert _rows(t.key, t.r_payload, t.s_payload, live) == _rows(
+        j.key, j.r_payload, j.s_payload, live)
+    for col, hole in ((t.key, -3), (t.r_payload, 0), (t.s_payload, 0)):
+        assert (col[live:] == hole).all()
+    assert (t.key[:live] != -3).all()
+
+
+def test_compact_matches():
+    rng = np.random.default_rng(6)
+    n = 5000
+    hit = rng.random(n) < 0.4
+    key, rp, sp = (rng.integers(-(1 << 31), 1 << 31, n, dtype=np.int64)
+                   .astype(np.int32) for _ in range(3))
+    for cap in (n, 1000):
+        j = jmj.compact_matches(jnp.asarray(hit), *map(jnp.asarray,
+                                                       (key, rp, sp)), cap)
+        t = tmj.compact_matches(torch.from_numpy(hit),
+                                *map(torch.from_numpy, (key, rp, sp)), cap)
+        _same(j, t)
+        live = min(int(t.matches), cap)
+        # the port keeps the hit rows in their order (a stable sort)
+        np.testing.assert_array_equal(t.key[:live].numpy(), key[hit][:live])
+        assert _rows(t.key, t.r_payload, t.s_payload) == _rows(
+            j.key, j.r_payload, j.s_payload)

@@ -1,0 +1,117 @@
+"""Every kernel wrapper's launch branch, run on the CPU against a stand-in
+library: the arguments each wrapper passes must fit the C signature it
+calls (count and kind), outputs come back in the documented shapes, and
+each launch is counted once.  (The kernels themselves run where a card is,
+in chip_smoke.py.)"""
+
+import ctypes
+
+import pytest
+import torch
+
+from aqp_tpu_torch.ops.kernels import build, compact, lanecompact, rho3
+
+KINDS = {ctypes.c_void_p: (int, type(None)), ctypes.c_int: (int,),
+         ctypes.c_longlong: (int,), ctypes.c_float: (float,)}
+
+
+class FakeLib:
+    """Checks each call against build.SIGNATURES and returns success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        argtypes, _ = build.SIGNATURES[name]
+
+        def fn(*args):
+            assert len(args) == len(argtypes), (name, len(args))
+            for i, (a, t) in enumerate(zip(args, argtypes)):
+                assert isinstance(a, KINDS[t]), (name, i, type(a))
+            self.calls.append(name)
+            if name == "rho3_k3_max_cap":
+                return 32768
+            if name == "rho3_k3_smem":
+                return args[0] * 4 * (3 if args[1] else 2)
+            return 0
+
+        return fn
+
+
+@pytest.fixture
+def lib(monkeypatch):
+    fake = FakeLib()
+    monkeypatch.setattr(build, "load", lambda: fake)
+    for mod in (rho3, compact, lanecompact):
+        monkeypatch.setattr(mod, "on_cuda", lambda x: True)
+        monkeypatch.setattr(mod, "stream", lambda device: 0)
+    return fake
+
+
+def _i32(*shape):
+    return torch.zeros(shape, dtype=torch.int32)
+
+
+def _counters():
+    out = {}
+    for c in (rho3.LAUNCHES, lanecompact.LAUNCHES, compact.LAUNCHES):
+        out.update(c)
+    return out
+
+
+def test_each_wrapper_calls_its_launcher_once(lib):
+    prm = rho3.Rho3Params(block_rows=128, slot_rows=8, f1=20, f2=4,
+                          kd_slot_rows=16)
+    nb, nbg = 32, 2
+    before = _counters()
+    for pay in (None, _i32(1000)):
+        k, p, cnt, _ = rho3.k1(_i32(1000), pay, nb, prm, 1.0)
+        assert k.shape == (nb, prm.f1, prm.cap1) and cnt.shape == (nb, 20)
+        assert (p is None) == (pay is None)
+        k2, p2, cnt2, _ = rho3.k2(k, p, cnt, prm, 1.0)
+        assert k2.shape == (prm.f1, nbg, prm.f2, prm.cap2)
+        m, c = rho3.k3(k2, p2, cnt2)
+        assert m.shape == c.shape == ()
+    m, c, ok, orp, osp = rho3.k3m(k2, p2, cnt2, 7)
+    assert ok.shape == orp.shape == osp.shape == (k2.numel(),)
+    col = _i32(10_000)
+    for payloads, fills in (([col, _i32(10_000)], (5, 0)), ([col], (5,))):
+        blocks, counts = lanecompact._compact_windows(col, payloads, 0, 9, 8,
+                                                      fills, 4)
+        assert counts.shape == (10,)
+        assert [b.shape for b in blocks] == [(10, 4, 128)] * len(payloads)
+    rows = _i32(40, 128)
+    d = _i32(10)
+    ok, op = compact.scatter_segments(rows, rows, d, d, d, 10, 21, 5)
+    assert ok.shape == op.shape == (21, 128) and (ok == 5).all()
+    assert not op.any()
+    one = compact.scatter_segments_one(rows, d, d, d, 10, 21, 5)
+    assert one.shape == (21, 128)
+    assert [n for n in lib.calls if n.startswith(("rho3_k", "compact",
+                                                  "scatter"))
+            and n not in ("rho3_k3_max_cap", "rho3_k3_smem")] == [
+        "rho3_k1", "rho3_k2", "rho3_k3", "rho3_k1", "rho3_k2", "rho3_k3",
+        "rho3_k3m", "compact_windows", "compact_windows",
+        "scatter_segments", "scatter_segments"]
+    after = _counters()
+    assert {k: after[k] - before[k] for k in after} == {
+        "K1": 2, "K2": 2, "K3": 2, "K3M": 1, "compact_windows": 2,
+        "scatter_segments": 1, "scatter_segments_one": 1}
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(lib):
+    slots = _i32(2, 1, 4, 128)
+    cnt = _i32(2, 1, 4)
+    with pytest.raises(ValueError, match="needs the payloads"):
+        rho3.k3m(slots, None, cnt, 1)
+    with pytest.raises(TypeError, match="int32"):
+        rho3.k3(slots.long(), None, cnt)
+    with pytest.raises(ValueError, match="one or two payload arrays"):
+        lanecompact._compact_windows(_i32(8), [], 0, 1, 8, ())
+    rows = _i32(4, 128)
+    d = _i32(2)
+    with pytest.raises(ValueError, match="shape"):
+        compact.scatter_segments(rows, _i32(3, 128), d, d, d, 2, 5)
+    with pytest.raises(ValueError, match="aligned"):
+        compact.scatter_segments_one(_i32(4 * 128 + 1)[1:].view(4, 128),
+                                     d, d, d, 2, 5)
