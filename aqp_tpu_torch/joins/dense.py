@@ -64,8 +64,11 @@ def _dense_hits(rk, rp, sk, sp):
     row's checksum term as unsigned int64."""
     n = rk.numel()
     hit = (sk >= 1) & (sk <= n)
-    idx = torch.where(hit, sk.long() - 1, 0)
-    rpay = torch.where(hit, _payload_by_key(rk, rp)[idx], 0)
+    if n == 0:      # the proof holds vacuously; there is no payload to read
+        rpay = torch.zeros_like(sp)
+    else:
+        idx = torch.where(hit, sk.long() - 1, 0)
+        rpay = torch.where(hit, _payload_by_key(rk, rp)[idx], 0)
     ck = torch.where(hit, ((rpay.long() & _U32) + (sp.long() & _U32)) & _U32,
                      0)
     return hit, rpay, ck

@@ -12,7 +12,9 @@ The escalation ladder, for counts and for materialized output:
      RETRY_SALTS[0], then the heavy-split tier (slot overflow is almost
      always duplicate-key mass, which no salt spreads);
   4. the pipeline under the other salts;
-  5. the exact sort core (ops/mergejoin.py).
+  5. the exact sort core (ops/mergejoin.py), also at once when a caller's
+     key is one of the two input-pad values 2^30-2 and 2^30-1, which the
+     pipeline would drop.
 
 A tier's result is used only when its overflow count is zero, so the answer
 is never silently wrong.  A compacted-residual tier that overflowed demotes
@@ -38,9 +40,11 @@ from aqp_tpu_torch.joins.skewtier import (demote_resid,
                                           rho_skew_split_materialize,
                                           skew_fused_count, skew_plan)
 from aqp_tpu_torch.ops import mergejoin
-from aqp_tpu_torch.ops.kernels.rho3 import (RETRY_SALTS, rho_join_count_v3,
+from aqp_tpu_torch.ops.kernels.rho3 import (PAD_R_INPUT, PAD_S_INPUT,
+                                            RETRY_SALTS, rho_join_count_v3,
                                             rho_join_materialize_v3)
 from aqp_tpu_torch.relation import JoinResult, Relation
+from aqp_tpu_torch.utils.cache import cached_by_tensor
 from aqp_tpu_torch.utils.timing import PhaseTimer
 
 
@@ -83,6 +87,21 @@ def _count_tiers(relR: Relation, cfg: JoinConfig, hinted: bool,
     return tiers + [(count_v3, s, False) for s in RETRY_SALTS[1:]]
 
 
+_PAD_CACHE: dict = {}
+
+
+def _has_pad(key) -> bool:
+    return bool(((key == PAD_R_INPUT) | (key == PAD_S_INPUT)).any())
+
+
+def _holds_input_pads(*keys) -> bool:
+    """True when a caller's key is PAD_R_INPUT or PAD_S_INPUT (cached per
+    tensor, as the dense proof and the skew plan are).  The pipeline drops
+    those values as input pads (the skew tier relies on that), so a
+    caller's real key of that value goes to the exact core instead."""
+    return any(cached_by_tensor(_PAD_CACHE, k, _has_pad) for k in keys)
+
+
 @register("RHO")
 def RHO(relR: Relation, relS: Relation, cfg: JoinConfig):
     """Parallel radix join: count and materialize, through the ladder."""
@@ -96,7 +115,7 @@ def RHO(relR: Relation, relS: Relation, cfg: JoinConfig):
             return out
     pt = PhaseTimer(relR.device)
     t0 = time.perf_counter()
-    if cfg.use_pallas:
+    if cfg.use_pallas and not _holds_input_pads(relR.key, relS.key):
         hinted, cap_rows = skew_plan(relS.key)
         call = pt.submit_fn if cfg.defer else pt.time_fn
 
@@ -131,8 +150,11 @@ def RHO(relR: Relation, relS: Relation, cfg: JoinConfig):
         out = pt.time_fn("join", mergejoin.merge_join_materialize, relR.key,
                          relR.payload, relS.key, relS.payload,
                          result_capacity(relS, cfg))
-    else:
+    elif cfg.checksum:
         out = pt.time_fn("join", mergejoin.merge_join_count, relR.key,
                          relR.payload, relS.key, relS.payload)
+    else:
+        out = pt.time_fn("join", mergejoin.merge_join_count_keys, relR.key,
+                         relS.key)
     pt.t.phases["total"] = time.perf_counter() - t0
     return to_join_result(out), pt.t

@@ -57,9 +57,14 @@ SIGNATURES = {
     "rho3_k3": ([_P, _P, _P, _I, _I, _I, _I, _P, _P, _P], _I),
     "rho3_k3m": ([_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
                  _I),
-    "compact_windows": ([_P, _P, _P, _I, _LL, _I, _I, _I, _I, _I, _I, _P, _P,
-                         _P, _P], _I),
+    "compact_windows": ([_P, _I, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                         _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+                        _I),
     "scatter_segments": ([_P, _P, _P, _P, _P, _I, _LL, _LL, _P, _P, _P], _I),
+    "scan_reduce": ([_P, _LL, _I, _I, _I, _P, _P], _I),
+    "scan_bitvector": ([_P, _LL, _I, _I, _P, _P], _I),
+    "aggpipe_k3agg": ([_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                       _P, _P, _P, _P, _P, _P, _P], _I),
 }
 
 

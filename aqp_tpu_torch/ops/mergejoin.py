@@ -50,14 +50,23 @@ def _last_index(valid: torch.Tensor) -> torch.Tensor:
 
 
 def _propagate(is_r: torch.Tensor, key: torch.Tensor, pay: torch.Tensor):
-    """The last R row's (key, payload) at or before each position; -1 for
-    both where no R row precedes (the reference's sentinel)."""
+    """The last R row's (key, payload) at or before each position, and
+    whether any R row is there at all.  The reference marks "no R row yet"
+    with the key -1, which an S key of -1 then matches; the mask does not.
+    Where no R row precedes, key and payload are those of position 0 and
+    must not be read."""
     last = _last_index(is_r)
-    seen = last >= 0
     at = last.clamp(min=0)
-    neg = torch.full_like(key, -1)
-    return (torch.where(seen, key[at], neg),
-            torch.where(seen, pay[at], neg))
+    return key[at], pay[at], last >= 0
+
+
+def _matches(pk: torch.Tensor, pay: torch.Tensor):
+    """On a sorted packed union: per position, the S rows that match, the
+    key, and the propagated R payload."""
+    is_r = (pk & 1) == 0
+    key = pk >> 1
+    prop_key, prop_pay, seen = _propagate(is_r, key, pay)
+    return ~is_r & seen & (prop_key == key), key, prop_pay
 
 
 def _u32(x: torch.Tensor) -> torch.Tensor:
@@ -73,10 +82,7 @@ def _sorted_union(r_key, r_payload, s_key, s_payload):
 def merge_join_count(r_key, r_payload, s_key, s_payload) -> JoinCounts:
     """Exact match count + mod-2^32 checksum, unique R keys."""
     pk, pay = _sorted_union(r_key, r_payload, s_key, s_payload)
-    is_r = (pk & 1) == 0
-    key = pk >> 1
-    prop_key, prop_pay = _propagate(is_r, key, pay)
-    match = ~is_r & (prop_key == key)
+    match, _, prop_pay = _matches(pk, pay)
     ck = torch.where(match, (_u32(prop_pay) + _u32(pay)) & _U32, 0)
     return JoinCounts(match.sum(), ck.sum() & _U32)
 
@@ -108,20 +114,14 @@ def merge_join_materialize(r_key, r_payload, s_key, s_payload,
     """Materialized join output (key, r_payload, s_payload) in the
     compact_matches layout.  Unique R keys."""
     pk, pay = _sorted_union(r_key, r_payload, s_key, s_payload)
-    is_r = (pk & 1) == 0
-    key = pk >> 1
-    prop_key, prop_pay = _propagate(is_r, key, pay)
-    match = ~is_r & (prop_key == key)
+    match, key, prop_pay = _matches(pk, pay)
     return compact_matches(match, key, prop_pay, pay, capacity)
 
 
 def merge_join_count_keys(r_key, s_key) -> JoinCounts:
     """Matches-only count (no payloads move); checksum 0.  Unique R keys."""
     pk = torch.sort(_packed(r_key, s_key)).values
-    is_r = (pk & 1) == 0
-    key = pk >> 1
-    prop_key, _ = _propagate(is_r, key, key)
-    match = ~is_r & (prop_key == key)
+    match, _, _ = _matches(pk, pk)
     return JoinCounts(match.sum(), torch.zeros((), dtype=torch.int64,
                                                device=pk.device))
 

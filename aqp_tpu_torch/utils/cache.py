@@ -1,4 +1,5 @@
-"""Per-tensor caches of derived facts (the dense-PK proof, the skew plan)."""
+"""Per-tensor caches of derived facts (the dense-PK proof, the skew plan,
+whether a key column holds an input-pad value)."""
 
 from __future__ import annotations
 

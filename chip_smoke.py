@@ -32,10 +32,29 @@ Phases, each printed on one line with its elapsed seconds:
      run_join("RHO") keys-only and checksummed (and materialize at z = 1.5)
      equal to the exact core, with the compactor and scatter launched where
      the plan compacts; the compactor (both forms) and the scatters timed
-     at z = 1.5.
-Each of phases 4, 7 and 8 sets the launch counts to 0 just before it and
-reads them just after.  Then one JSON line with the kernels' numbers, and
-last the result line {"ok": true, "device": {...}}.  Any failure exits
+     at z = 1.5;
+  9. scans at full width: the count and sum kernels, the bitvector kernel
+     and the window kernel's index, values and dict forms against their
+     plain versions (odd n, unaligned starts, windows cut); then the main
+     path through the user's entry points: count, sum and bitvector over the
+     reference's 16 GiB scale-up column (2^34 uint8 rows, arange & 255,
+     against the closed form), bench.py's 32 count passes over 2^28 rows,
+     and the index (2^29 rows), values and dict (2^28 rows) scans at 10%
+     and 50% with a full-size output (experiments/scan_bench.py's sizes),
+     live rows equal to the dense forms', and a hint below the selectivity
+     that must report overflow; then each kernel timed at those shapes
+     (B7 and B8 at 2^30 random rows against their plain versions) and
+     scan_count_streamed over a 2^30-row pinned host column;
+ 10. the aggregate at full width: bench.py's leg on phase 7's
+     materialize output (group key = key & (2^20 - 1), compact_kp_fast,
+     groupby_aggregate_routed_auto with capacity 2^21) and the jittered
+     branch (64 groups, capacity 64), equal to the sort-based aggregate;
+     the leg's steps timed, and K3AGG against its plain version at the
+     leg's K2 shapes.
+Each of phases 4, 7, 8, 9 and 10 sets the launch counts to 0 just before
+its main path and reads them just after.  The scale-up column needs 16 GiB
+of device memory (18 GiB with its bitvector).  Then one JSON line with the
+kernels' numbers, and last the result line {"ok": true, "device": {...}}.  Any failure exits
 non-zero; a watchdog ends a run that hangs.
 """
 
@@ -57,9 +76,10 @@ from aqp_tpu_torch.data import (  # noqa: E402
 from aqp_tpu_torch import engine  # noqa: E402
 from aqp_tpu_torch.joins import skewtier  # noqa: E402
 from aqp_tpu_torch.joins.api import run_join  # noqa: E402
-from aqp_tpu_torch.ops import mergejoin  # noqa: E402
+from aqp_tpu_torch.ops import aggregate, mergejoin, scan  # noqa: E402
 from aqp_tpu_torch.ops.kernels import (  # noqa: E402
-    build, compact, lanecompact, rho3)
+    aggpipe, build, compact, lanecompact, rho3)
+from aqp_tpu_torch.ops.kernels import scan as kscan  # noqa: E402
 from aqp_tpu_torch.relation import Relation  # noqa: E402
 
 NR, NS = 13_107_200, 52_428_800      # bench.py's headline workload
@@ -72,15 +92,30 @@ SOURCE = {"K1": "aqp_tpu_torch/csrc/rho3.cu",
           "K3M": "aqp_tpu_torch/csrc/rho3.cu",
           "compact_windows": "aqp_tpu_torch/csrc/lanecompact.cu",
           "scatter_segments": "aqp_tpu_torch/csrc/compact.cu",
-          "scatter_segments_one": "aqp_tpu_torch/csrc/compact.cu"}
+          "scatter_segments_one": "aqp_tpu_torch/csrc/compact.cu",
+          "scan_count": "aqp_tpu_torch/csrc/scan.cu",
+          "scan_sum": "aqp_tpu_torch/csrc/scan.cu",
+          "scan_bitvector": "aqp_tpu_torch/csrc/scan.cu",
+          "compact_windows_index": "aqp_tpu_torch/csrc/lanecompact.cu",
+          "compact_windows_values": "aqp_tpu_torch/csrc/lanecompact.cu",
+          "compact_windows_dict": "aqp_tpu_torch/csrc/lanecompact.cu",
+          "K3AGG": "aqp_tpu_torch/csrc/aggpipe.cu"}
 REPLACES = {"K1": "aqp_tpu/ops/pallas/rho3.py:212",
             "K2": "aqp_tpu/ops/pallas/rho3.py:250",
             "K3": "aqp_tpu/ops/pallas/rho3.py:300",
             "K3M": "aqp_tpu/ops/pallas/rho3.py:343",
             "compact_windows": "aqp_tpu/ops/pallas/lanecompact.py:209",
             "scatter_segments": "aqp_tpu/ops/pallas/compact.py:157",
-            "scatter_segments_one": "aqp_tpu/ops/pallas/compact.py:299"}
-COUNTERS = (rho3.LAUNCHES, lanecompact.LAUNCHES, compact.LAUNCHES)
+            "scatter_segments_one": "aqp_tpu/ops/pallas/compact.py:299",
+            "scan_count": "aqp_tpu/ops/pallas/scan.py:30",
+            "scan_sum": "aqp_tpu/ops/pallas/scan.py:41",
+            "scan_bitvector": "aqp_tpu/ops/pallas/scan.py:47",
+            "compact_windows_index": "aqp_tpu/ops/pallas/lanecompact.py:209",
+            "compact_windows_values": "aqp_tpu/ops/pallas/lanecompact.py:209",
+            "compact_windows_dict": "aqp_tpu/ops/pallas/lanecompact.py:209",
+            "K3AGG": "aqp_tpu/ops/pallas/aggpipe.py:112"}
+COUNTERS = (rho3.LAUNCHES, lanecompact.LAUNCHES, compact.LAUNCHES,
+            kscan.LAUNCHES, aggpipe.LAUNCHES)
 W = 512                              # the compactor's window, in rows
 # the compaction keeps lo <= key <= hi: every key but the input pad
 KEEP_RANGE = (lanecompact.INT32_MIN + 1, lanecompact.PAD_R_INPUT - 1)
@@ -563,6 +598,7 @@ def main() -> int:
         require(same_live_rows(got[2:5], want_rows),
                 f"materialize {label}: live rows != exact core's")
     out_len = mres.key.numel()
+    agg_input = (fused[2], fused[4])     # phase 10 groups this output
     del mres, fused, exact, want_rows
     mat_ms = {}
     for label, fn in (
@@ -675,6 +711,14 @@ def main() -> int:
         require(skew_launches[name] > 0, f"{name} was not launched on the "
                 "skew path")
     torch.cuda.synchronize()
+
+    # 9. scans at full width
+    rows.update(scan_phase())
+    # 10. the aggregate at full width, on phase 7's materialize output
+    rows.update(aggregate_phase(*agg_input))
+    torch.cuda.synchronize()
+    say(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        " GiB")
     print(json.dumps({"kernels": [rows[k] for k in SOURCE]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -812,6 +856,439 @@ def kept_sectors(kept: torch.Tensor) -> int:
     pad = -kept.numel() % 8
     kept = torch.cat([kept, kept.new_zeros(pad)])
     return int(kept.view(-1, 8).any(1).sum())
+
+
+SCAN_LO, SCAN_HI = 32, 200          # bench.py's predicate (first pass)
+SCALE_UP_ROWS = 1 << 34             # the reference's DRAM scale-up column
+READ_ROWS = 1 << 30                 # scan_bench.py's read-only modes
+BENCH_SCAN_ROWS = 1 << 28           # bench.py's scan leg
+BENCH_SCAN_PASSES = 32
+WRITE_ROWS = {"index": 1 << 29, "values": 1 << 28, "dict": 1 << 28}
+AGG_GROUPS = 1 << 20                # bench.py's group key: the low 20 bits
+AGG_CAP = 1 << 21
+LOW_GROUPS = 64                     # the jittered branch's case
+
+
+def byte_column(n: int) -> torch.Tensor:
+    """scan_bench.py's column arange(n) & 255 as uint8 (n a multiple of
+    256), a 256-byte pattern repeated: no wider intermediate."""
+    return torch.arange(256, dtype=torch.uint8, device=DEV).repeat(n // 256)
+
+
+def in_range(lo: int, hi: int):
+    """The bytes of one 256-row cycle of byte_column in [lo, hi]."""
+    return [b for b in range(256) if lo <= b <= hi]
+
+
+def sel_bound(sel: float) -> int:
+    """scan_bench.py's predicate [0, hi] for a selectivity fraction."""
+    return max(0, min(255, round(sel * 256) - 1))
+
+
+def scan_form_args(col, hi, sel_hint, mode, tables):
+    """The window kernel's arguments as scan_<mode>_fast passes them."""
+    ow = lanecompact.out_w_for(W, sel_hint)
+    kw = {"with_ids": True}
+    fills = ()
+    if mode == "values":
+        kw["with_values"] = True
+        fills = (0,)
+    if mode == "dict":
+        kw["dict_tables"] = tables
+    return (col, [], 0, hi, W, fills, ow), kw
+
+
+def check_scan_kernels(tables) -> None:
+    """B7, B8 and B5's scan forms equal their plain versions: odd lengths,
+    an unaligned start, empty and clamped ranges; windows cut and not cut,
+    uint8 and int32 columns."""
+    gen = torch.Generator(device=DEV).manual_seed(909)
+    base = torch.randint(0, 256, ((1 << 24) + 45,), generator=gen,
+                         device=DEV, dtype=torch.uint8)
+    pairs = ((kscan.count, kscan.count_plain), (kscan.sum_, kscan.sum_plain),
+             (kscan.bitvector, kscan.bitvector_plain))
+    for col in (base, base[3:], base[5:1000]):
+        for lo, hi in ((32, 200), (0, 255), (250, 400), (9, 3)):
+            for kernel, plain in pairs:
+                got, want = kernel(col, lo, hi), plain(col, lo, hi)
+                torch.cuda.synchronize()
+                err = max_abs_err([got], [want])
+                require(err == 0, f"{kernel.__name__} differs from its plain "
+                        f"version by {err} (n={col.numel()}, [{lo}, {hi}])")
+    col8 = base[:(4 << 20) + 77]
+    for col in (col8, col8.int()):
+        for hint in (None, 0.1):
+            for mode in ("index", "values", "dict"):
+                args, kw = scan_form_args(col, 180, hint, mode, tables)
+                args = (args[0], args[1], 30) + args[3:]
+                got = lanecompact._compact_windows(*args, **kw)
+                want = lanecompact.compact_windows_plain(*args, **kw)
+                torch.cuda.synchronize()
+                err = max_abs_err([*got[0], got[1]], [*want[0], want[1]])
+                require(err == 0, f"compact_windows {mode} differs from its "
+                        f"plain version by {err} ({col.dtype}, hint {hint})")
+                cut = int((got[1].long() > args[6] * 128).sum())
+                require((cut > 0) == (hint == 0.1),
+                        f"compact_windows {mode}: {cut} windows cut")
+
+
+def check_write_mode(mode, col, hi, out, tables) -> None:
+    """A write mode's block-granular output against the dense forms: no
+    overflow, the closed-form count, the live row ids equal to
+    ops/scan.scan_index's in order, and their values / decoded planes."""
+    n = col.numel()
+    want = n // 256 * len(in_range(0, hi))
+    require(int(out[-1]) == 0 and int(out[-2]) == want,
+            f"{mode} scan at {n} rows, [0, {hi}]: count {int(out[-2])} "
+            f"(want {want}), overflow {int(out[-1])}")
+    ids = out[0]
+    live = ids < lanecompact.PAD_S_INPUT
+    dense, cnt = scan.scan_index(col, 0, hi, n)
+    got_ids = ids[live]
+    require(int(cnt) == want and torch.equal(got_ids, dense[:want]),
+            f"{mode} scan: live row ids != the dense index scan's")
+    codes = col[got_ids.long()].long()
+    if mode == "values":
+        require(torch.equal(out[1][live], codes.int()),
+                "values scan: values != the column's")
+    if mode == "dict":
+        require(torch.equal(out[1][live], tables[0][codes])
+                and torch.equal(out[2][live], tables[1][codes]),
+                "dict scan: planes != the dictionary's")
+
+
+def bench_scan_passes(col):
+    """bench.py's scan leg: 32 count passes with lo = 32 + i, hi = 200."""
+    total = torch.zeros((), dtype=torch.int64, device=DEV)
+    for i in range(BENCH_SCAN_PASSES):
+        total += scan.scan_count(col, SCAN_LO + i, SCAN_HI)
+    return total
+
+
+def scan_phase() -> dict:
+    """Phase 9: the scan family at full width.  Returns the kernels'
+    rows."""
+    tables = (torch.arange(256, dtype=torch.int32, device=DEV) * 7,
+              torch.arange(256, dtype=torch.int32, device=DEV) * 7 + 1)
+    check_scan_kernels(tables)
+    say("scans: count, sum, bitvector and the window kernel's index, values "
+        "and dict forms equal their plain versions (odd n, unaligned start, "
+        "clamped and empty ranges; uint8 and int32, windows cut and not)")
+    big = byte_column(SCALE_UP_ROWS)
+    torch.cuda.synchronize()
+    # the main path: every scan mode through the entry points a user calls
+    reset_launches()
+    c34 = scan.scan_count(big, SCAN_LO, SCAN_HI)
+    s34 = scan.scan_sum(big, SCAN_LO, SCAN_HI)
+    b34 = scan.scan_bitvector(big, SCAN_LO, SCAN_HI)
+    bench_total = bench_scan_passes(big[:BENCH_SCAN_ROWS])
+    for mode, n in WRITE_ROWS.items():
+        col = big[:n]
+        for sel in (0.1, 0.5):
+            hi = sel_bound(sel)
+            extra = tables if mode == "dict" else ()
+            out = getattr(kscan, f"scan_{mode}_pallas")(
+                col, *extra, 0, hi, n // 128, sel_hint=sel)
+            check_write_mode(mode, col, hi, out, tables)
+            del out
+    low = kscan.scan_index_pallas(big[:WRITE_ROWS["index"]], 0,
+                                  sel_bound(0.5), WRITE_ROWS["index"] // 128,
+                                  sel_hint=0.1)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    say(f"scan path launches: {launches}")
+    require(int(low[-1]) > 0, "a hint below the selectivity did not report "
+            "overflow")
+    del low
+    for name in ("scan_count", "scan_sum", "scan_bitvector",
+                 "compact_windows_index", "compact_windows_values",
+                 "compact_windows_dict"):
+        require(launches[name] > 0, f"{name} was not launched on the scan "
+                "path")
+    cyc = in_range(SCAN_LO, SCAN_HI)
+    reps = SCALE_UP_ROWS // 256
+    pat = kscan.bitvector_plain(big[:256].cpu(), SCAN_LO, SCAN_HI).to(DEV)
+    require(int(c34) == reps * len(cyc) and int(s34) == reps * sum(cyc),
+            "2^34-row count/sum != the closed form")
+    require(bool((b34.view(-1, 32) == pat).all()),
+            "2^34-row bitvector != the closed form")
+    want_bench = sum(BENCH_SCAN_ROWS // 256 * len(in_range(SCAN_LO + i,
+                                                           SCAN_HI))
+                     for i in range(BENCH_SCAN_PASSES))
+    require(int(bench_total) == want_bench, "bench.py's scan passes: total "
+            f"{int(bench_total)} != {want_bench}")
+    del b34
+    out = {"rows_2^34": {}}
+    for label, fn in (("count", scan.scan_count), ("sum", scan.scan_sum),
+                      ("bitvector", scan.scan_bitvector)):
+        ms = cuda_ms(lambda: fn(big, SCAN_LO, SCAN_HI), 3)
+        out["rows_2^34"][label] = {"ms": ms, "gb_per_s":
+                                   SCALE_UP_ROWS / ms / 1e6}
+        say(f"{label} over 2^34 rows (16 GiB, exact): {ms:.3f} ms, "
+            f"{SCALE_UP_ROWS / ms / 1e6:.1f} GB/s")
+    col28 = big[:BENCH_SCAN_ROWS]
+    ms = cuda_ms(lambda: bench_scan_passes(col28), REPS)
+    out["bench_scan"] = {"ms": ms, "gb_per_s": BENCH_SCAN_PASSES
+                         * BENCH_SCAN_ROWS / ms / 1e6}
+    say(f"bench.py's scan leg (32 count passes over 2^28 rows, exact): "
+        f"{ms:.3f} ms, {out['bench_scan']['gb_per_s']:.1f} GB/s")
+    rows = {}
+    out["write_modes"] = {}
+    for mode, n in WRITE_ROWS.items():
+        col = big[:n]
+        hi = sel_bound(0.1)
+        args, kw = scan_form_args(col, hi, 0.1, mode, tables)
+        name = f"compact_windows_{mode}"
+        got = lanecompact._compact_windows(*args, **kw)
+        want = lanecompact.compact_windows_plain(*args, **kw)
+        torch.cuda.synchronize()
+        err = max_abs_err([*got[0], got[1]], [*want[0], want[1]])
+        require(err == 0, f"{name} differs from its plain version at {n} "
+                "rows")
+        del want
+        k_ms = cuda_ms(lambda: lanecompact._compact_windows(*args, **kw),
+                       REPS)
+        p_ms = cuda_ms(lambda: lanecompact.compact_windows_plain(*args, **kw),
+                       1)
+        nb, ow = got[1].numel(), args[6]
+        bound = (n + len(got[0]) * nb * ow * 128 * 4 + nb * 4) \
+            / HBM_BYTES_PER_S * 1e3
+        del got
+
+        def composition(col=col, hi=hi, mode=mode):
+            m = kscan.range_mask(col, 0, hi)
+            if mode == "index":
+                return torch.nonzero(m)
+            v = torch.masked_select(col, m)
+            return (tables[0][v.long()], tables[1][v.long()]) \
+                if mode == "dict" else v
+
+        lib_ms = cuda_ms(composition, REPS)
+        lib_call = {"index": "torch.nonzero of the range mask",
+                    "values": "torch.masked_select by the range mask",
+                    "dict": "torch.masked_select + two table gathers"}[mode]
+        rows[name] = kernel_row(name, err, k_ms, p_ms, bound, lib_ms,
+                                lib_call)
+        rows[name]["launches"] = launches[name]
+        fn = getattr(kscan, f"scan_{mode}_pallas")
+        extra = tables if mode == "dict" else ()
+        e_ms = cuda_ms(lambda: fn(col, *extra, 0, hi, n // 128,
+                                  sel_hint=0.1), REPS)
+        out["write_modes"][mode] = {"rows": n, "ms": e_ms, "read_gb_per_s":
+                                    n / e_ms / 1e6}
+        say(f"{name} ({n} rows, 10%, hint 0.1, ow={ow}): {k_ms:.3f} ms "
+            f"(plain {p_ms:.3f}, bound {bound:.3f}, {lib_call} "
+            f"{lib_ms:.3f} ms); scan_{mode}_pallas {e_ms:.3f} ms, "
+            f"{n / e_ms / 1e6:.1f} GB/s read")
+    del big, col, col28
+    # each of B7 and B8 against its plain version at 2^30 random rows
+    gen = torch.Generator(device=DEV).manual_seed(910)
+    col30 = torch.randint(0, 256, (READ_ROWS,), generator=gen, device=DEV,
+                          dtype=torch.uint8)
+    for name, kernel, plain in (
+            ("scan_count", kscan.count, kscan.count_plain),
+            ("scan_sum", kscan.sum_, kscan.sum_plain),
+            ("scan_bitvector", kscan.bitvector, kscan.bitvector_plain)):
+        got, want = kernel(col30, SCAN_LO, SCAN_HI), plain(col30, SCAN_LO,
+                                                           SCAN_HI)
+        torch.cuda.synchronize()
+        err = max_abs_err([got], [want])
+        require(err == 0, f"{name} differs from its plain version at 2^30 "
+                "rows")
+        k_ms = cuda_ms(lambda: kernel(col30, SCAN_LO, SCAN_HI), REPS)
+        p_ms = cuda_ms(lambda: plain(col30, SCAN_LO, SCAN_HI), 1)
+        nbytes_ = READ_ROWS + (READ_ROWS // 8 if name == "scan_bitvector"
+                               else 8)
+        bound = nbytes_ / HBM_BYTES_PER_S * 1e3
+        lib_ms, lib_call = None, None
+        if name != "scan_bitvector":
+            lib_ms = cuda_ms(lambda: torch.bincount(col30, minlength=256),
+                             REPS)
+            lib_call = ("torch.bincount of the column (a histogram, from "
+                        "which a 256-entry epilogue gives the result)")
+        rows[name] = kernel_row(name, err, k_ms, p_ms, bound, lib_ms,
+                                lib_call)
+        rows[name]["launches"] = launches[name]
+        say(f"{name} (2^30 rows): {k_ms:.3f} ms, {READ_ROWS / k_ms / 1e6:.1f}"
+            f" GB/s (plain {p_ms:.3f} ms, bound {bound:.3f} ms"
+            + (f", {lib_call.split(' (')[0]} {lib_ms:.3f} ms)" if lib_ms
+               else ")"))
+    host = torch.empty((READ_ROWS,), dtype=torch.uint8, pin_memory=True)
+    host.copy_(col30)
+    want = int(kscan.count_plain(col30, SCAN_LO, SCAN_HI))
+    got = scan.scan_count_streamed(host, SCAN_LO, SCAN_HI)
+    require(int(got) == want, "scan_count_streamed != the count")
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        int(scan.scan_count_streamed(host, SCAN_LO, SCAN_HI))
+        times.append(time.perf_counter() - t0)
+    out["streamed_2^30"] = {"s": times, "gb_per_s": READ_ROWS / min(times)
+                            / 1e9}
+    say(f"scan_count_streamed over a 2^30-row pinned host column (exact): "
+        f"{min(times) * 1e3:.3f} ms, {READ_ROWS / min(times) / 1e9:.1f} GB/s")
+    del col30, host
+    print(json.dumps({"scan": out}), flush=True)
+    return rows
+
+
+def check_k3agg() -> None:
+    """K3AGG equals its plain version on range-routed slots: the default
+    geometry with 2^16 groups of wide values, the small one, and an input
+    with holes."""
+    gen = torch.Generator(device=DEV).manual_seed(808)
+    for prm, n, groups in ((rho3.Rho3Params(), 4 << 20, 1 << 16),
+                           (SMALL_GEOM, 1 << 16, 3000),
+                           (rho3.Rho3Params(), (1 << 20) + 99, 1 << 19)):
+        key = torch.randint(0, groups, (n,), generator=gen, device=DEV,
+                            dtype=torch.int32) * 5
+        key = torch.where(torch.rand(n, generator=gen, device=DEV) < 0.1,
+                          -3, key)
+        val = torch.randint(-(1 << 31), 1 << 31, (n,), generator=gen,
+                            device=DEV, dtype=torch.int64).int()
+        args = k3agg_inputs(key, val, prm)
+        require(int(args[3]) == 0, "routing overflowed in the K3AGG check")
+        got = aggpipe.k3agg(*args[:3])
+        want = aggpipe.k3agg_plain(*args[:3])
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        require(err == 0, f"K3AGG differs from its plain version by {err} "
+                f"({prm}, {groups} groups)")
+
+
+def k3agg_inputs(key, val, prm):
+    """K3AGG's inputs as groupby_aggregate_routed makes them: (k2, v2,
+    cnt2, overflow, nbg)."""
+    key = torch.where(key < 0, rho3.MAX_KEY, key)
+    scale = aggpipe._range_scale(key, prm)
+    packed, _ = rho3.pack_keys(key, torch.zeros_like(key), 1)
+    k2, v2, cnt2, nbg, ovf = rho3.route_2level(packed, val, prm, True,
+                                               scale=scale)
+    return k2, v2, cnt2, ovf, nbg
+
+
+def live_groups(g):
+    """The live rows (key != -3) of a group-by result, in output order."""
+    live = g.key != -3
+    return [c[live].long() for c in (g.key, g.count, g.sum, g.min, g.max)]
+
+
+def same_groups(got, want) -> bool:
+    return all(torch.equal(a, b) for a, b in zip(live_groups(got),
+                                                 live_groups(want)))
+
+
+def aggregate_phase(key, spay) -> dict:
+    """Phase 10: bench.py's aggregate leg over phase 7's materialize output,
+    the jittered branch at 64 groups, and K3AGG alone at the leg's K2
+    shapes.  Returns the kernel's row."""
+    check_k3agg()
+    say("aggregate: K3AGG equals its plain version (default and small "
+        "geometry, holes, wide values)")
+    # bench.py sizes the compaction at ceil(|S| / 128) + 16 rows and does
+    # not read its overflow; the block-granular output can need one partial
+    # row per window more than that (1,152 windows here), so the leg gets
+    # that much room and its overflow is checked
+    cap_rows = -(-NS // 128) + -(-key.numel() // (W * 128))
+    gk = {g: torch.where(key < 0, rho3.PAD_S_INPUT, key & (g - 1))
+          for g in (AGG_GROUPS, LOW_GROUPS)}
+    caps = {AGG_GROUPS: AGG_CAP, LOW_GROUPS: LOW_GROUPS}
+
+    def leg(groups):
+        ck, cv, ovf = lanecompact.compact_kp_fast(gk[groups], spay, cap_rows)
+        return aggpipe.groupby_aggregate_routed_auto(ck, cv, caps[groups]), ovf
+
+    torch.cuda.synchronize()
+    reset_launches()
+    res = {g: leg(g) for g in (AGG_GROUPS, LOW_GROUPS)}
+    torch.cuda.synchronize()
+    launches = read_launches()
+    say(f"aggregate path launches: {launches}")
+    for name in ("compact_windows", "scatter_segments", "scatter_segments_one",
+                 "K1", "K2", "K3AGG"):
+        require(launches[name] > 0, f"{name} was not launched on the "
+                "aggregate path")
+    out = {}
+    for groups, (g, covf) in res.items():
+        oracle = aggregate.groupby_aggregate(
+            torch.where(key < 0, -3, key & (groups - 1)), spay, 2 * groups)
+        require(int(covf) == 0, "compact_kp_fast overflowed")
+        require(int(g.num_groups) == groups <= caps[groups],
+                f"{groups} groups: num_groups {int(g.num_groups)}")
+        require(same_groups(g, oracle), f"{groups} groups: the routed rows "
+                "!= the sort-based aggregate's")
+        out[f"groups={groups}"] = {"out_len": g.key.numel()}
+        del oracle
+    del res
+    for groups in (AGG_GROUPS, LOW_GROUPS):
+        ms = cuda_ms(lambda: leg(groups), REPS)
+        out[f"groups={groups}"].update(ms=ms, mrows_per_s=NS / ms / 1e3)
+        say(f"aggregate leg, {groups} groups (compact_kp_fast + "
+            f"groupby_aggregate_routed_auto, capacity {caps[groups]}): "
+            f"{ms:.3f} ms, {NS / ms / 1e3:.1f} M rows/s over the live rows")
+    okey = torch.where(key < 0, -3, key & (AGG_GROUPS - 1))
+    out["sort_based_ms"] = cuda_ms(
+        lambda: aggregate.groupby_aggregate(okey, spay, AGG_CAP), 1)
+    # the 2^20-group leg step by step
+    prm = rho3.Rho3Params()
+    ck, cv, _ = lanecompact.compact_kp_fast(gk[AGG_GROUPS], spay, cap_rows)
+    cap1 = AGG_CAP + 128 * prm.f1 * prm.f2 + 128
+    kk = torch.where(ck < 0, rho3.MAX_KEY, ck)
+    scale = aggpipe._range_scale(kk, prm)
+    packed, _ = rho3.pack_keys(kk, torch.zeros_like(kk), 1)
+    k2, v2, cnt2, nbg, ovf = rho3.route_2level(packed, cv, prm, True,
+                                               scale=scale)
+    blocks = aggpipe.k3agg(k2, v2, cnt2)
+    steps = {
+        "compact_kp_fast": lambda: lanecompact.compact_kp_fast(
+            gk[AGG_GROUPS], spay, cap_rows),
+        "range scale (kmax, host sync)": lambda: aggpipe._range_scale(kk,
+                                                                      prm),
+        "pack_keys": lambda: rho3.pack_keys(kk, torch.zeros_like(kk), 1),
+        "route_2level (K1 + K2)": lambda: rho3.route_2level(
+            packed, cv, prm, True, scale=scale),
+        "K3AGG": lambda: aggpipe.k3agg(k2, v2, cnt2),
+        "assembly (segments + scatters)": lambda: aggpipe.assemble_regions(
+            list(blocks[:5]), blocks[5], ovf, nbg, prm, cap1),
+    }
+    # the 64-group leg's first level (the routed pipeline on the jittered
+    # keys) and its K3AGG
+    ck64, cv64, _ = lanecompact.compact_kp_fast(gk[LOW_GROUPS], spay,
+                                                cap_rows)
+    jit = aggpipe.jitter_for(LOW_GROUPS)
+    ek = aggpipe.jittered_keys(ck64, jit)
+    cap64 = LOW_GROUPS * jit + 128 * prm.f1 * prm.f2 + 128
+    args64 = k3agg_inputs(ek, cv64, prm)
+    steps[f"{LOW_GROUPS} groups: routed pipeline on the jittered keys "
+          f"(jitter {jit})"] = lambda: aggpipe.groupby_aggregate_routed(
+              ek, cv64, cap64)
+    steps[f"{LOW_GROUPS} groups: K3AGG"] = lambda: aggpipe.k3agg(
+        *args64[:3])
+    out["steps_ms"] = {k: cuda_ms(f, REPS) for k, f in steps.items()}
+    for k, v in out["steps_ms"].items():
+        say(f"aggregate step {k}: {v:.3f} ms")
+    del ck64, cv64, ek, args64
+    # K3AGG alone at the leg's K2 shapes
+    want = aggpipe.k3agg_plain(k2, v2, cnt2)
+    torch.cuda.synchronize()
+    err = max_abs_err(blocks, want)
+    require(err == 0, "K3AGG differs from its plain version at the "
+            "aggregate leg's shapes")
+    del want
+    k_ms = out["steps_ms"]["K3AGG"]
+    p_ms = cuda_ms(lambda: aggpipe.k3agg_plain(k2, v2, cnt2), 1)
+    groups = int(blocks[5].long().sum())
+    nbytes_ = (int(cnt2.long().sum()) * 8 + cnt2.numel() * 4 + groups * 20
+               + blocks[5].numel() * 4)
+    bound = nbytes_ / HBM_BYTES_PER_S * 1e3
+    row = kernel_row("K3AGG", err, k_ms, p_ms, bound)
+    row["launches"] = launches["K3AGG"]
+    say(f"K3AGG ({groups} groups over {int(cnt2.long().sum())} routed rows, "
+        f"nbg={nbg}): {k_ms:.3f} ms (plain {p_ms:.3f} ms, bound "
+        f"{bound:.3f} ms from {nbytes_} bytes)")
+    print(json.dumps({"aggregate": out}), flush=True)
+    return {"K3AGG": row}
 
 
 if __name__ == "__main__":

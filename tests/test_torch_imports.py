@@ -42,6 +42,9 @@ def test_imports_without_jax():
             "aqp_tpu_torch.ops.kernels.rho3, "
             "aqp_tpu_torch.ops.kernels.compact, "
             "aqp_tpu_torch.ops.kernels.lanecompact, "
+            "aqp_tpu_torch.ops.kernels.scan, "
+            "aqp_tpu_torch.ops.kernels.aggpipe, "
+            "aqp_tpu_torch.ops.scan, aqp_tpu_torch.ops.aggregate, "
             "aqp_tpu_torch.joins.skewtier; print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -86,13 +89,39 @@ def test_entry_points_without_device_raise_when_no_cuda():
         lambda: engine.rho_join_materialize_fused(*cols),
         lambda: engine.rho_join_materialize(*cols, 128),
     ]
+    from aqp_tpu_torch.ops import aggregate, scan
+    from aqp_tpu_torch.ops.kernels import aggpipe
+    from aqp_tpu_torch.ops.kernels import scan as kscan
+
+    col = torch.zeros(128 * 256, dtype=torch.uint8)
+    calls += [
+        lambda: scan.scan_count(col, 1, 2),
+        lambda: scan.scan_sum(col, 1, 2),
+        lambda: scan.scan_bitvector(col, 1, 2),
+        lambda: scan.scan_index(col, 1, 2, 8),
+        lambda: scan.scan_values(col, 1, 2, 8),
+        lambda: scan.scan_dict(col, r.key, 1, 2, 8),
+        lambda: scan.scan_dict_full(col, r.key),
+        lambda: scan.scan_count_streamed(col, 1, 2),
+        lambda: kscan.scan_count_pallas(col, 1, 2, sub=256),
+        lambda: kscan.scan_sum_pallas(col, 1, 2, sub=256),
+        lambda: kscan.scan_bitvector_pallas(col, 1, 2, sub=256),
+        lambda: kscan.scan_index_pallas(col, 1, 2, 8),
+        lambda: kscan.scan_values_pallas(col, 1, 2, 8),
+        lambda: kscan.scan_dict_pallas(col, r.key, r.key, 1, 2, 8),
+        lambda: aggregate.groupby_aggregate(r.key, r.payload, 8),
+        lambda: aggregate.radix_sort_pairs(r.key, r.payload),
+        lambda: aggpipe.groupby_aggregate_routed(r.key, r.payload, 8),
+        lambda: aggpipe.groupby_aggregate_routed_auto(r.key, r.payload, 8),
+    ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
 
 
 def test_kernel_wrappers_reject_other_devices():
-    from aqp_tpu_torch.ops.kernels import compact, lanecompact, rho3
+    from aqp_tpu_torch.ops.kernels import (aggpipe, compact, lanecompact,
+                                           rho3, scan)
 
     meta = torch.zeros(8, dtype=torch.int32, device="meta")
     rows = torch.zeros((4, 128), dtype=torch.int32, device="meta")
@@ -105,6 +134,11 @@ def test_kernel_wrappers_reject_other_devices():
                                          meta[:1], 1, 5),
         lambda: compact.scatter_segments_one(rows, meta[:1], meta[:1],
                                              meta[:1], 1, 5),
+        lambda: scan.count(meta.to(torch.uint8), 0, 1),
+        lambda: scan.bitvector(meta.to(torch.uint8), 0, 1),
+        lambda: lanecompact._compact_windows(meta.to(torch.uint8), [], 0, 1,
+                                             8, (), with_ids=True),
+        lambda: aggpipe.k3agg(slots, slots, meta[:4].view(2, 1, 2)),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="unsupported device"):

@@ -313,3 +313,58 @@ def test_dense_proof_is_cached_per_tensor(monkeypatch):
     key[0] = 5000                   # an in-place write: proved anew
     assert not dense.dense_proof(key) and len(calls) == 3
     assert not dense.dense_proof(key) and len(calls) == 3
+
+
+PAD_KEYS = ((1 << 30) - 2, (1 << 30) - 1)    # the pipeline's input pads
+
+
+@pytest.mark.parametrize("fields", [{"checksum": False}, {},
+                                    {"materialize": True}],
+                         ids=["keys", "sum", "materialize"])
+def test_input_pad_keys_go_to_the_exact_core(fields, monkeypatch):
+    """R holds 2^30-2 among ordinary keys, S holds 2^30-2 and 2^30-1: the
+    pipeline would drop both as input pads with overflow 0, so RHO sends
+    the call to the exact core, and the answer is the reference's."""
+    rng = np.random.default_rng(21)
+    rk = np.append(rng.choice(1 << 28, 4095, replace=False) + 1,
+                   PAD_KEYS[0])
+    sk = np.concatenate([rng.choice(rk[:-1], 5000), PAD_KEYS])
+    rng.shuffle(sk)
+    rp = rng.integers(-(1 << 31), 1 << 31, rk.size, dtype=np.int64)
+    sp = rng.integers(-(1 << 31), 1 << 31, sk.size, dtype=np.int64)
+    rk, rp, sk, sp = (a.astype(np.int32) for a in (rk, rp, sk, sp))
+    exact = _Spy(monkeypatch, tradix.mergejoin,
+                 "merge_join_materialize" if fields.get("materialize")
+                 else "merge_join_count" if fields.get("checksum", True)
+                 else "merge_join_count_keys")
+    jres, _ = jrun(JRelation(jnp.asarray(rk), jnp.asarray(rp)),
+                   JRelation(jnp.asarray(sk), jnp.asarray(sp)), "RHO",
+                   JConfig(**fields))
+    tres, _ = trun(TRelation.from_numpy(rk, rp, device="cpu"),
+                   TRelation.from_numpy(sk, sp, device="cpu"), "RHO",
+                   TConfig(**fields), device="cpu")
+    assert int(jres.matches) == 5001
+    assert _pair(tres) == _pair(jres)
+    assert tres.overflow is None
+    assert len(exact.calls) == 1
+    if fields.get("materialize"):
+        assert _live(tres) == _live(jres)
+
+
+@pytest.mark.parametrize("fields", [{"checksum": False}, {},
+                                    {"materialize": True}],
+                         ids=["keys", "sum", "materialize"])
+def test_empty_build_side_gives_zero_results(fields):
+    """|R| = 0 on the dense path (its proof holds vacuously): no match, a
+    zero checksum and materialized columns of holes only.  (The reference
+    raises a TypeError there.)"""
+    r = TRelation.from_numpy(np.zeros(0, np.int32), device="cpu")
+    sk = np.arange(1, 1001, dtype=np.int32)
+    s = TRelation.from_numpy(sk, sk * 3, device="cpu")
+    for dense in (True, False):
+        res, _ = trun(r, s, "RHO", TConfig(dense_path=dense, **fields),
+                      device="cpu")
+        assert _pair(res) == (0, 0)
+        if fields.get("materialize"):
+            assert _live(res) == []
+            assert not res.r_payload.any() and not res.s_payload.any()

@@ -93,3 +93,65 @@ def test_cpu_compaction_launches_no_kernel():
     before = dict(tlc.LAUNCHES)
     tlc.compact_k_fast(torch.arange(1000, dtype=torch.int32), 16, w=8)
     assert tlc.LAUNCHES == before
+
+
+SCAN_CASES = {
+    # name: (n, dtype, sel_hint): whole windows (the reference reads bytes),
+    # a ragged tail (the reference widens to int32, the port reads bytes),
+    # a hint below the selectivity (windows cut), an int32 column
+    "u8-whole": (3 * W * 128, np.uint8, None),
+    "u8-ragged": (3 * W * 128 + 77, np.uint8, 0.6),
+    "u8-cut": (3 * W * 128 + 77, np.uint8, 0.1),
+    "int32": (2 * W * 128 + 5, np.int32, None),
+}
+DICT_LO = (np.arange(256) * 5 - 7).astype(np.int32)
+DICT_HI = (np.arange(256) * -3 + 1000).astype(np.int32)
+
+
+@pytest.mark.parametrize("mode", ["index", "values", "dict"])
+@pytest.mark.parametrize("case", sorted(SCAN_CASES))
+def test_scan_fast_forms_match_reference(case, mode):
+    """The compactor's scan forms (row ids; values; dictionary decode),
+    position by position, with the block-granular fill between windows."""
+    n, dtype, sel = SCAN_CASES[case]
+    rng = np.random.default_rng(len(case) + n)
+    hi_val = 256 if dtype == np.uint8 else 300
+    col = rng.integers(-40 if dtype == np.int32 else 0, hi_val, n).astype(
+        dtype)
+    lo, hi = 20, 180
+    cap = n // 128 + 4
+    j, t = jnp.asarray(col), torch.from_numpy(col)
+    if mode == "dict":
+        jo = jlc.scan_dict_fast(j, jnp.asarray(DICT_LO), jnp.asarray(DICT_HI),
+                                lo, hi, cap, w=W, sel_hint=sel,
+                                interpret=True)
+        to = tlc.scan_dict_fast(t, torch.from_numpy(DICT_LO),
+                                torch.from_numpy(DICT_HI), lo, hi, cap, w=W,
+                                sel_hint=sel)
+    else:
+        jo = getattr(jlc, f"scan_{mode}_fast")(j, lo, hi, cap, w=W,
+                                               sel_hint=sel, interpret=True)
+        to = getattr(tlc, f"scan_{mode}_fast")(t, lo, hi, cap, w=W,
+                                               sel_hint=sel)
+    assert len(to) == len(jo)
+    for a, b in zip(jo, to):
+        np.testing.assert_array_equal(b.numpy().astype(np.int64),
+                                      np.asarray(a).astype(np.int64))
+    ovf = int(to[-1])
+    assert (ovf > 0) == (case == "u8-cut")
+    if not ovf:
+        ids = to[0].numpy()
+        live = ids < tlc.PAD_S_INPUT
+        keep = (col.astype(np.int64) >= lo) & (col.astype(np.int64) <= hi)
+        np.testing.assert_array_equal(ids[live], np.nonzero(keep)[0])
+        if mode == "values":
+            np.testing.assert_array_equal(to[1].numpy()[live], col[keep])
+        if mode == "dict":
+            np.testing.assert_array_equal(to[2].numpy()[live],
+                                          DICT_HI[col[keep]])
+
+
+def test_scan_row_ids_are_limited_to_int32_pads():
+    col = torch.empty(tlc.PAD_R_INPUT, dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="row ids are int32"):
+        tlc._compact_windows(col, [], 0, 9, 8, (), with_ids=True)

@@ -1,6 +1,10 @@
 """The port's exact sort core against aqp_tpu.ops.mergejoin, on the CPU.
 
-Same numpy inputs to both; matches and checksum must be equal bitwise.
+Same numpy inputs to both; matches and checksum must be equal bitwise,
+once the reference's phantom matches are taken out: its propagate cores
+mark "no R row yet" with the key -1, so an S row keyed -1 with no R key at
+or below -1 "matches" (with R payload -1).  The port's cores use a mask
+and do not (ROADMAP, deliberate differences).
 """
 
 import numpy as np
@@ -25,9 +29,23 @@ def _data(seed, nr=3000, ns=9000, dup_r=False):
     return [a.astype(np.int32) for a in (rk, rp, sk, sp)]
 
 
-def _same(j, t):
-    assert int(t.matches) == int(j.matches)
-    assert int(t.checksum) == int(j.checksum)
+U32 = 0xFFFFFFFF
+
+
+def _phantom(rk, sk, sp=None):
+    """(matches, checksum) of the reference's phantom matches: the S rows
+    keyed -1 when no R key is at or below -1, each with R payload -1."""
+    if rk.size and rk.min() <= -1:
+        return 0, 0
+    hit = sk == -1
+    pay = np.zeros(int(hit.sum()), np.int64) if sp is None else \
+        sp[hit].astype(np.int64) & U32
+    return int(hit.sum()), int(((U32 + pay) & U32).sum()) & U32
+
+
+def _same(j, t, phantom=(0, 0)):
+    assert int(t.matches) == int(j.matches) - phantom[0]
+    assert int(t.checksum) == (int(j.checksum) - phantom[1]) & U32
     assert 0 <= int(t.checksum) < (1 << 32)
 
 
@@ -35,7 +53,8 @@ def _same(j, t):
 def test_merge_join_count(seed):
     d = _data(seed)
     _same(jmj.merge_join_count(*map(jnp.asarray, d)),
-          tmj.merge_join_count(*map(torch.from_numpy, d)))
+          tmj.merge_join_count(*map(torch.from_numpy, d)),
+          _phantom(d[0], d[2], d[3]))
 
 
 @pytest.mark.parametrize("dup_r", [False, True], ids=["unique", "dup"])
@@ -43,7 +62,7 @@ def test_merge_join_count_keys(dup_r):
     rk, _, sk, _ = _data(2, dup_r=dup_r)
     j = jmj.merge_join_count_keys(jnp.asarray(rk), jnp.asarray(sk))
     t = tmj.merge_join_count_keys(torch.from_numpy(rk), torch.from_numpy(sk))
-    _same(j, t)
+    _same(j, t, (_phantom(rk, sk)[0], 0))
     assert int(t.checksum) == 0
 
 
@@ -90,14 +109,21 @@ def test_merge_join_materialize(capacity):
     differently), then holes keyed -3 with zero payloads; the same length
     and scalars."""
     d = _data(4)
-    j = jmj.merge_join_materialize(*map(jnp.asarray, d), capacity)
+    ph = _phantom(d[0], d[2], d[3])
+    # the reference's phantom rows (-1, -1, s) sort first: give it room for
+    # them, then take them out
+    j = jmj.merge_join_materialize(*map(jnp.asarray, d), capacity + ph[0])
     t = tmj.merge_join_materialize(*map(torch.from_numpy, d), capacity)
-    _same(j, t)
+    _same(j, t, ph)
     m = int(t.matches)
     assert t.key.shape == (capacity,) and t.key.dtype == torch.int32
     live = min(m, capacity)
+    jk = np.asarray(j.key)
+    assert (jk[:ph[0]] == -1).all() and (np.asarray(j.r_payload)[:ph[0]]
+                                         == -1).all()
     assert _rows(t.key, t.r_payload, t.s_payload, live) == _rows(
-        j.key, j.r_payload, j.s_payload, live)
+        *(np.asarray(c)[ph[0]:] for c in (j.key, j.r_payload, j.s_payload)),
+        live)
     for col, hole in ((t.key, -3), (t.r_payload, 0), (t.s_payload, 0)):
         assert (col[live:] == hole).all()
     assert (t.key[:live] != -3).all()
@@ -120,3 +146,31 @@ def test_compact_matches():
         np.testing.assert_array_equal(t.key[:live].numpy(), key[hit][:live])
         assert _rows(t.key, t.r_payload, t.s_payload) == _rows(
             j.key, j.r_payload, j.s_payload)
+
+
+@pytest.mark.parametrize("core", ["count", "keys", "materialize"])
+def test_s_key_minus_one_has_no_phantom_match(core):
+    """R = {10, 20, 30}, S = {-1, 10}: exactly one match.  The reference's
+    -1 "no R row yet" sentinel matches the S key -1 and gives two, the
+    phantom row being (-1, R payload -1, S payload)."""
+    rk = np.array([10, 20, 30], np.int32)
+    rp = np.array([7, 8, 9], np.int32)
+    sk = np.array([-1, 10], np.int32)
+    sp = np.array([100, 200], np.int32)
+    tj = [jnp.asarray(a) for a in (rk, rp, sk, sp)]
+    tt = [torch.from_numpy(a) for a in (rk, rp, sk, sp)]
+    if core == "count":
+        j, t = jmj.merge_join_count(*tj), tmj.merge_join_count(*tt)
+        assert int(t.checksum) == 7 + 200
+        assert int(j.checksum) == (7 + 200 + U32 + 100) & U32
+    elif core == "keys":
+        j = jmj.merge_join_count_keys(tj[0], tj[2])
+        t = tmj.merge_join_count_keys(tt[0], tt[2])
+    else:
+        j = jmj.merge_join_materialize(*tj, 4)
+        t = tmj.merge_join_materialize(*tt, 4)
+        assert _rows(t.key, t.r_payload, t.s_payload, 1) == [(10, 7, 200)]
+        assert _rows(j.key, j.r_payload, j.s_payload, 2) == [
+            (-1, -1, 100), (10, 7, 200)]
+    assert int(t.matches) == 1
+    assert int(j.matches) == 2       # the reference's phantom match

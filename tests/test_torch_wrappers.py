@@ -9,7 +9,8 @@ import ctypes
 import pytest
 import torch
 
-from aqp_tpu_torch.ops.kernels import build, compact, lanecompact, rho3
+from aqp_tpu_torch.ops.kernels import (aggpipe, build, compact, lanecompact,
+                                       rho3, scan)
 
 KINDS = {ctypes.c_void_p: (int, type(None)), ctypes.c_int: (int,),
          ctypes.c_longlong: (int,), ctypes.c_float: (float,)}
@@ -42,7 +43,7 @@ class FakeLib:
 def lib(monkeypatch):
     fake = FakeLib()
     monkeypatch.setattr(build, "load", lambda: fake)
-    for mod in (rho3, compact, lanecompact):
+    for mod in (rho3, compact, lanecompact, scan, aggpipe):
         monkeypatch.setattr(mod, "on_cuda", lambda x: True)
         monkeypatch.setattr(mod, "stream", lambda device: 0)
     return fake
@@ -54,9 +55,17 @@ def _i32(*shape):
 
 def _counters():
     out = {}
-    for c in (rho3.LAUNCHES, lanecompact.LAUNCHES, compact.LAUNCHES):
+    for c in (rho3.LAUNCHES, lanecompact.LAUNCHES, compact.LAUNCHES,
+              scan.LAUNCHES, aggpipe.LAUNCHES):
         out.update(c)
     return out
+
+
+NO_LAUNCH = {"K1": 0, "K2": 0, "K3": 0, "K3M": 0, "compact_windows": 0,
+             "compact_windows_index": 0, "compact_windows_values": 0,
+             "compact_windows_dict": 0, "scatter_segments": 0,
+             "scatter_segments_one": 0, "scan_count": 0, "scan_sum": 0,
+             "scan_bitvector": 0, "K3AGG": 0}
 
 
 def test_each_wrapper_calls_its_launcher_once(lib):
@@ -94,9 +103,38 @@ def test_each_wrapper_calls_its_launcher_once(lib):
         "rho3_k3m", "compact_windows", "compact_windows",
         "scatter_segments", "scatter_segments"]
     after = _counters()
-    assert {k: after[k] - before[k] for k in after} == {
-        "K1": 2, "K2": 2, "K3": 2, "K3M": 1, "compact_windows": 2,
-        "scatter_segments": 1, "scatter_segments_one": 1}
+    assert {k: after[k] - before[k] for k in after} == dict(
+        NO_LAUNCH, K1=2, K2=2, K3=2, K3M=1, compact_windows=2,
+        scatter_segments=1, scatter_segments_one=1)
+
+
+def test_scan_and_aggregate_wrappers_call_their_launchers_once(lib):
+    col = torch.zeros(10_001, dtype=torch.uint8)
+    before = _counters()
+    for fn in (scan.count, scan.sum_):
+        out = fn(col, 3, 300)
+        assert out.shape == () and out.dtype == torch.int64
+    bv = scan.bitvector(col, -1, 9)
+    assert bv.shape == (1251,) and bv.dtype == torch.uint8
+    table = _i32(256)
+    for kw, nout in (({}, 1), ({"with_values": True}, 2),
+                     ({"dict_tables": (table, table)}, 3)):
+        fills = (0,) if kw.get("with_values") else ()
+        blocks, counts = lanecompact._compact_windows(
+            col, [], 0, 9, 8, fills, 4, with_ids=True, **kw)
+        assert counts.shape == (10,)
+        assert [b.shape for b in blocks] == [(10, 4, 128)] * nout
+    k2 = _i32(6, 2, 4, 256)
+    outs = aggpipe.k3agg(k2, k2, _i32(6, 2, 4))
+    assert [o.shape for o in outs] == [(24, 512)] * 5 + [(24,)]
+    assert [n for n in lib.calls if n != "rho3_error_string"] == [
+        "scan_reduce", "scan_reduce", "scan_bitvector", "compact_windows",
+        "compact_windows", "compact_windows", "aggpipe_k3agg"]
+    after = _counters()
+    assert {k: after[k] - before[k] for k in after} == dict(
+        NO_LAUNCH, scan_count=1, scan_sum=1, scan_bitvector=1,
+        compact_windows_index=1, compact_windows_values=1,
+        compact_windows_dict=1, K3AGG=1)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(lib):
@@ -115,3 +153,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(lib):
     with pytest.raises(ValueError, match="aligned"):
         compact.scatter_segments_one(_i32(4 * 128 + 1)[1:].view(4, 128),
                                      d, d, d, 2, 5)
+    with pytest.raises(TypeError, match="uint8"):
+        scan.count(_i32(64), 0, 9)
+    with pytest.raises(TypeError, match="int32 or uint8"):
+        lanecompact._compact_windows(_i32(64).long(), [], 0, 9, 8, (),
+                                     with_ids=True)
+    with pytest.raises(ValueError, match="shape"):
+        lanecompact._compact_windows(_i32(64), [], 0, 9, 8, (), with_ids=True,
+                                     dict_tables=(_i32(128), _i32(128)))
+    with pytest.raises(TypeError, match="int32"):
+        aggpipe.k3agg(slots.long(), slots, cnt)
