@@ -29,13 +29,15 @@ class JoinConfig:
     materialize: bool = False
     # 64-bit keys and payloads.  Not ported yet: key_dtype raises.
     key64: bool = False
-    # Hash-table load factor of the no-partition joins (later slice).
+    # Load factor of the no-partition joins' staged open-addressing table
+    # (joins/nopart.table_bits_for; use_pallas=False or profile_phases).
     load_factor: float = 0.5
-    # Linear-probe window of the no-partition joins (later slice).
+    # Linear-probe window of that table (joins/nopart.probe_table).
     probe_window: int = 4
     # Rows per partition targeted by the partition planner.
     partition_rows: int = DEFAULT_PARTITION_ROWS
-    # Run the hand-written kernels' pipeline (rho3); False -> exact sort core.
+    # Run the hand-written kernels' pipelines (rho3, nphj); False -> RHO's
+    # exact sort core, the no-partition joins' staged engines.
     use_pallas: bool = True
     # Compute the mod-2^32 payload checksum; False runs the keys-only
     # pipeline, which moves no payloads.
@@ -46,7 +48,8 @@ class JoinConfig:
     # Return without any host synchronisation; joins.api.finalize_join
     # validates the overflow counter later.
     defer: bool = False
-    # Staged per-phase timing; it also turns off the dense path.
+    # Staged per-phase timing; it also turns off the dense path and sends the
+    # no-partition joins to their staged engines.
     profile_phases: bool = False
 
     @property

@@ -31,12 +31,12 @@
 //         after the real elements).
 //   K2  = k2_scatter_kernel (one CTA per window, f2 shared counters) +
 //         slot_sort_kernel.
-//   K3  = k3_count_kernel: one CTA per (region, probe run).  The probe run
-//         is staged in shared memory; every run of the region is staged in
-//         turn and each unmatched S element binary-searches it for its
-//         R partner (packed key - 1).  Matches and the checksum leave the
-//         CTA through integer atomicAdd; an unsigned 32-bit atomicAdd wraps
-//         mod 2^32, so the checksum is exact and independent of order.
+//   K3  = region_join_kernel (region_join.cuh, shared with nphj.cu's
+//         K3TWO): one CTA per (region, probe run).  The probe run is staged
+//         in shared memory; every run of the region is staged in turn and
+//         each unmatched S element binary-searches it for its R partner
+//         (packed key - 1).  K3 probes and searches the same array.
+//   K3M = the same kernel with its output columns.
 // A "kernel" of the Python side (K1, K2) is thus two launches.
 //
 // Slot semantics.  A slot holds its real elements first, sorted by (key,
@@ -77,13 +77,12 @@
 
 #include <cuda_runtime.h>
 
+#include "region_join.cuh"
+
 namespace {
 
 constexpr int KEY_PAD_INT = 2147483647;
 constexpr int SCATTER_THREADS = 1024;
-constexpr int K3_THREADS = 512;
-// K3 tracks which of a thread's probe elements matched in one 64-bit mask.
-constexpr int K3_MAX_PER_THREAD = 64;
 
 // Global fine bucket in [0, gmax) of a real packed key, gmax for a high pad,
 // -1 for a low pad (rho3._fine_bucket).
@@ -234,177 +233,6 @@ __global__ void slot_sort_kernel(int* __restrict__ k, int* __restrict__ p,
   }
 }
 
-__device__ __forceinline__ unsigned warp_sum(unsigned v) {
-  for (int d = 16; d > 0; d >>= 1) v += __shfl_down_sync(0xffffffffu, v, d);
-  return v;
-}
-
-// K3: one CTA per (region, probe run j).  An S element matches when some run
-// of its region holds packed key - 1 (its R partner).  Runs are searched in
-// index order and the first run that holds the partner decides; within a
-// run the lowest (key, payload) copy is taken, so a duplicate R key still
-// counts each S element once and the checksum is deterministic.
-template <bool PAY>
-__global__ void __launch_bounds__(K3_THREADS) k3_count_kernel(
-    const int* __restrict__ k2, const int* __restrict__ p2,
-    const int* __restrict__ cnt2, int nbg, int f2, int cap2,
-    unsigned long long* __restrict__ matches,
-    unsigned int* __restrict__ checksum) {
-  extern __shared__ int smem[];
-  int* s_probe = smem;           // probe run keys
-  int* s_rk = smem + cap2;       // searched run keys
-  int* s_rp = smem + 2 * cap2;   // searched run payloads (PAY only)
-  const int j = blockIdx.x % nbg;
-  const int region = blockIdx.x / nbg;
-  const int a = region / f2;
-  const int b = region % f2;
-  const size_t cnt_j = ((size_t)a * nbg + j) * f2 + b;
-  const int cj = cnt2[cnt_j];
-  if (cj == 0) return;
-  const size_t off_j = cnt_j * cap2;
-  int has_s = 0;
-  for (int e = threadIdx.x; e < cj; e += blockDim.x) {
-    const int k = k2[off_j + e];
-    s_probe[e] = k;
-    has_s |= k & 1;
-  }
-  if (!__syncthreads_or(has_s)) return;
-
-  unsigned long long done = 0ull;  // bit t: element threadIdx.x + t*blockDim.x
-  unsigned my_m = 0u;
-  unsigned my_c = 0u;
-  for (int i = 0; i < nbg; ++i) {
-    const size_t cnt_i = ((size_t)a * nbg + i) * f2 + b;
-    const int ci = cnt2[cnt_i];
-    if (ci == 0) continue;
-    const size_t off_i = cnt_i * cap2;
-    int has_r = 0;
-    for (int e = threadIdx.x; e < ci; e += blockDim.x) {
-      const int k = k2[off_i + e];
-      s_rk[e] = k;
-      if (PAY) s_rp[e] = p2[off_i + e];
-      has_r |= !(k & 1);
-    }
-    if (__syncthreads_or(has_r)) {
-      int t = 0;
-      for (int e = threadIdx.x; e < cj; e += blockDim.x, ++t) {
-        if ((done >> t) & 1ull) continue;
-        const int k = s_probe[e];
-        if (!(k & 1)) continue;
-        const int want = k - 1;
-        int lo = 0;
-        int hi = ci;
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          if (s_rk[mid] < want) lo = mid + 1; else hi = mid;
-        }
-        if (lo < ci && s_rk[lo] == want) {
-          done |= 1ull << t;
-          ++my_m;
-          if (PAY) my_c += (unsigned)s_rp[lo] + (unsigned)p2[off_j + e];
-        }
-      }
-    }
-    __syncthreads();  // the next run overwrites s_rk / s_rp
-  }
-  my_m = warp_sum(my_m);
-  if (PAY) my_c = warp_sum(my_c);
-  if ((threadIdx.x & 31) == 0) {
-    if (my_m) atomicAdd(matches, (unsigned long long)my_m);
-    if (PAY && my_c) atomicAdd(checksum, my_c);
-  }
-}
-
-// K3M: K3 with materialized output.  The CTA of (region, probe run j) owns
-// the output positions of fine slot (a, j, b): each matched S element writes
-// (((key >> 1) * inv) mod 2^30, R payload, S payload) at its own position,
-// and every other position of the slot's capacity (R elements, unmatched S
-// elements, pads) gets (-3, 0, 0).  inv is the salt's inverse mod 2^30, so
-// the first column is the original key.  Which R copy answers is K3's rule.
-__global__ void __launch_bounds__(K3_THREADS) k3m_kernel(
-    const int* __restrict__ k2, const int* __restrict__ p2,
-    const int* __restrict__ cnt2, int nbg, int f2, int cap2, int inv,
-    int* __restrict__ ok, int* __restrict__ orp, int* __restrict__ osp,
-    unsigned long long* __restrict__ matches,
-    unsigned int* __restrict__ checksum) {
-  extern __shared__ int smem[];
-  int* s_probe = smem;
-  int* s_rk = smem + cap2;
-  int* s_rp = smem + 2 * cap2;
-  const int j = blockIdx.x % nbg;
-  const int region = blockIdx.x / nbg;
-  const int a = region / f2;
-  const int b = region % f2;
-  const size_t cnt_j = ((size_t)a * nbg + j) * f2 + b;
-  const int cj = cnt2[cnt_j];
-  const size_t off_j = cnt_j * cap2;
-  int has_s = 0;
-  for (int e = threadIdx.x; e < cj; e += blockDim.x) {
-    const int k = k2[off_j + e];
-    s_probe[e] = k;
-    has_s |= k & 1;
-  }
-  const int any_s = __syncthreads_or(has_s);
-
-  unsigned long long done = 0ull;  // bit t: element threadIdx.x + t*blockDim.x
-  unsigned my_m = 0u;
-  unsigned my_c = 0u;
-  for (int i = 0; any_s && i < nbg; ++i) {
-    const size_t cnt_i = ((size_t)a * nbg + i) * f2 + b;
-    const int ci = cnt2[cnt_i];
-    if (ci == 0) continue;
-    const size_t off_i = cnt_i * cap2;
-    int has_r = 0;
-    for (int e = threadIdx.x; e < ci; e += blockDim.x) {
-      const int k = k2[off_i + e];
-      s_rk[e] = k;
-      s_rp[e] = p2[off_i + e];
-      has_r |= !(k & 1);
-    }
-    if (__syncthreads_or(has_r)) {
-      int t = 0;
-      for (int e = threadIdx.x; e < cj; e += blockDim.x, ++t) {
-        if ((done >> t) & 1ull) continue;
-        const int k = s_probe[e];
-        if (!(k & 1)) continue;
-        const int want = k - 1;
-        int lo = 0;
-        int hi = ci;
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          if (s_rk[mid] < want) lo = mid + 1; else hi = mid;
-        }
-        if (lo < ci && s_rk[lo] == want) {
-          done |= 1ull << t;
-          ++my_m;
-          const int rp = s_rp[lo];
-          const int sp = p2[off_j + e];
-          my_c += (unsigned)rp + (unsigned)sp;
-          ok[off_j + e] =
-              (int)(((unsigned)(k >> 1) * (unsigned)inv) & 0x3FFFFFFFu);
-          orp[off_j + e] = rp;
-          osp[off_j + e] = sp;
-        }
-      }
-    }
-    __syncthreads();  // the next run overwrites s_rk / s_rp
-  }
-  // holes: every position of the slot that no match wrote
-  int t = 0;
-  for (int e = threadIdx.x; e < cap2; e += blockDim.x, ++t) {
-    if (e < cj && ((done >> t) & 1ull)) continue;
-    ok[off_j + e] = -3;
-    orp[off_j + e] = 0;
-    osp[off_j + e] = 0;
-  }
-  my_m = warp_sum(my_m);
-  my_c = warp_sum(my_c);
-  if ((threadIdx.x & 31) == 0) {
-    if (my_m) atomicAdd(matches, (unsigned long long)my_m);
-    if (my_c) atomicAdd(checksum, my_c);
-  }
-}
-
 int sort_threads(int n_pow2) {
   int t = n_pow2 / 2;
   if (t < 32) t = 32;
@@ -487,37 +315,20 @@ int rho3_k2(const int* k1, const int* p1, const int* cnt1, int f1, int group,
 
 // Shared memory K3 needs for a fine-slot capacity of cap2.
 long long rho3_k3_smem(int cap2, int with_payload) {
-  return (long long)cap2 * sizeof(int) * (with_payload ? 3 : 2);
+  return region_join_smem(cap2, with_payload != 0);
 }
 
 // Largest fine-slot capacity K3's per-thread match mask covers.
-int rho3_k3_max_cap() { return K3_THREADS * K3_MAX_PER_THREAD; }
+int rho3_k3_max_cap() { return RJ_THREADS * RJ_MAX_PER_THREAD; }
 
 // K3: K2's fine slots -> *matches, *checksum (both accumulated; the caller
 // zeroes them).
 int rho3_k3(const int* k2, const int* p2, const int* cnt2, int f1, int nbg,
             int f2, int cap2, unsigned long long* matches,
             unsigned int* checksum, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = (size_t)rho3_k3_smem(cap2, p2 != nullptr);
-  const int grid = f1 * f2 * nbg;
-  cudaError_t err;
-  if (p2) {
-    err = cudaFuncSetAttribute(k3_count_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    k3_count_kernel<true><<<grid, K3_THREADS, smem, st>>>(
-        k2, p2, cnt2, nbg, f2, cap2, matches, checksum);
-  } else {
-    err = cudaFuncSetAttribute(k3_count_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    k3_count_kernel<false><<<grid, K3_THREADS, smem, st>>>(
-        k2, nullptr, cnt2, nbg, f2, cap2, matches, checksum);
-  }
-  return (int)cudaGetLastError();
+  const Runs runs{k2, p2, cnt2, nbg};
+  return (int)launch_region_join(runs, runs, f1, f2, cap2, 0, false, Cols{},
+                                 matches, checksum, (cudaStream_t)stream);
 }
 
 // K3M: K2's fine slots with payloads -> ok/orp/osp[f1][nbg][f2][cap2] (every
@@ -527,17 +338,12 @@ int rho3_k3m(const int* k2, const int* p2, const int* cnt2, int f1, int nbg,
              int f2, int cap2, int inv, int* ok, int* orp, int* osp,
              unsigned long long* matches, unsigned int* checksum,
              void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const size_t smem = (size_t)rho3_k3_smem(cap2, 1);
-  const int grid = f1 * f2 * nbg;
-  cudaError_t err = cudaFuncSetAttribute(
-      k3m_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  if (grid > 0)
-    k3m_kernel<<<grid, K3_THREADS, smem, st>>>(k2, p2, cnt2, nbg, f2, cap2,
-                                               inv, ok, orp, osp, matches,
-                                               checksum);
-  return (int)cudaGetLastError();
+  const Runs runs{k2, p2, cnt2, nbg};
+  // output position of slot (a, j, b) = its position in K2's layout
+  const Cols out{ok, orp, osp, (long long)nbg * f2 * cap2, cap2,
+                 (long long)f2 * cap2, 0};
+  return (int)launch_region_join(runs, runs, f1, f2, cap2, inv, true, out,
+                                 matches, checksum, (cudaStream_t)stream);
 }
 
 }  // extern "C"

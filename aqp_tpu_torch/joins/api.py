@@ -1,7 +1,8 @@
 """Join dispatcher (counterpart of aqp_tpu/joins/api.py).
 
-Only RHO is ported so far; any other name raises ValueError naming the
-registered algorithms.
+Ported so far: RHO (joins/radix.py) and the no-partition family PHT,
+PHT_no, PHT_un, PHT_o, NPO_st, NPO_no and NPBC_st (joins/nopart.py).  Any
+other name raises ValueError naming the registered algorithms.
 """
 
 from __future__ import annotations
@@ -70,3 +71,4 @@ def finalize_join(relR: Relation, relS: Relation, result: JoinResult,
 
 # Engine registration side effects:
 from aqp_tpu_torch.joins import radix as _rx  # noqa: E402,F401
+from aqp_tpu_torch.joins import nopart as _np  # noqa: E402,F401

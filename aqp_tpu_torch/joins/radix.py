@@ -24,12 +24,15 @@ counter beside it, and joins.api.finalize_join walks the ladder if needed.
 
 The reference takes the pipeline only on a TPU; the port takes it on every
 device, through the plain versions on the CPU, so the CPU tests run the
-same ladder the card runs.
+same ladder the card runs.  The no-partition family (joins/nopart.py)
+walks the same ladder with its own pipeline: count_tiers, walk_ladder and
+exact_core serve both.
 """
 
 from __future__ import annotations
 
 import time
+from typing import Optional
 
 from aqp_tpu_torch.config import JoinConfig
 from aqp_tpu_torch.joins.api import register
@@ -49,42 +52,46 @@ from aqp_tpu_torch.utils.timing import PhaseTimer
 
 
 def _materialize_tiers(hinted: bool):
-    tiers = [(rho_join_materialize_v3, RETRY_SALTS[0]),
-             (rho_skew_split_materialize, RETRY_SALTS[0])]
+    """The materialize ladder's tiers, in count_tiers' form."""
+    tiers = [(rho_join_materialize_v3, RETRY_SALTS[0], False),
+             (rho_skew_split_materialize, RETRY_SALTS[0], False)]
     if hinted:
         tiers.reverse()
-    return tiers + [(rho_join_materialize_v3, s) for s in RETRY_SALTS[1:]]
+    return tiers + [(rho_join_materialize_v3, s, False)
+                    for s in RETRY_SALTS[1:]]
 
 
-def _count_tiers(relR: Relation, cfg: JoinConfig, hinted: bool,
-                 cap_rows: int):
+def count_tiers(relR: Relation, cfg: JoinConfig, hinted: bool,
+                cap_rows: int, count=rho_join_count_v3, pipeline=None):
     """The count ladder's tiers as (fn(rk, rp, sk, sp, salt) -> (matches,
-    checksum, overflow), salt, is the compacted-residual tier)."""
+    checksum, overflow), salt, is the compacted-residual tier).
+
+    `count(rk, rp, sk, sp, salt=, with_checksum=)` is the plain tier's
+    pipeline and `pipeline` the skew tiers' residual engine
+    (skewtier.skew_fused_count); the defaults are RHO's."""
     def r_dense():
         return not cfg.checksum and dense_proof(relR.key)
 
-    def count_v3(rk, rp, sk, sp, salt):
-        return rho_join_count_v3(rk, rp, sk, sp, salt=salt,
-                                 with_checksum=cfg.checksum)
+    def plain(rk, rp, sk, sp, salt):
+        return count(rk, rp, sk, sp, salt=salt, with_checksum=cfg.checksum)
 
-    def skew_v3(rk, rp, sk, sp, salt):
+    def skewed(rk, rp, sk, sp, salt, resid_cap_rows=0):
         return skew_fused_count(rk, rp, sk, sp, salt,
                                 with_checksum=cfg.checksum,
+                                pipeline=pipeline,
+                                resid_cap_rows=resid_cap_rows,
                                 r_dense=r_dense())
 
     def skew_resid(rk, rp, sk, sp, salt):
-        return skew_fused_count(rk, rp, sk, sp, salt,
-                                with_checksum=cfg.checksum,
-                                resid_cap_rows=cap_rows,
-                                r_dense=r_dense())
+        return skewed(rk, rp, sk, sp, salt, resid_cap_rows=cap_rows)
 
     s0 = RETRY_SALTS[0]
     if hinted:
         tiers = [(skew_resid, s0, True)] if cap_rows else []
-        tiers += [(skew_v3, s0, False), (count_v3, s0, False)]
+        tiers += [(skewed, s0, False), (plain, s0, False)]
     else:
-        tiers = [(count_v3, s0, False), (skew_v3, s0, False)]
-    return tiers + [(count_v3, s, False) for s in RETRY_SALTS[1:]]
+        tiers = [(plain, s0, False), (skewed, s0, False)]
+    return tiers + [(plain, s, False) for s in RETRY_SALTS[1:]]
 
 
 _PAD_CACHE: dict = {}
@@ -94,7 +101,7 @@ def _has_pad(key) -> bool:
     return bool(((key == PAD_R_INPUT) | (key == PAD_S_INPUT)).any())
 
 
-def _holds_input_pads(*keys) -> bool:
+def holds_input_pads(*keys) -> bool:
     """True when a caller's key is PAD_R_INPUT or PAD_S_INPUT (cached per
     tensor, as the dense proof and the skew plan are).  The pipeline drops
     those values as input pads (the skew tier relies on that), so a
@@ -102,50 +109,46 @@ def _holds_input_pads(*keys) -> bool:
     return any(cached_by_tensor(_PAD_CACHE, k, _has_pad) for k in keys)
 
 
-@register("RHO")
-def RHO(relR: Relation, relS: Relation, cfg: JoinConfig):
-    """Parallel radix join: count and materialize, through the ladder."""
-    for rel in (relR, relS):
+def require_key_dtype(name: str, cfg: JoinConfig, *rels: Relation) -> None:
+    """Raise unless every relation's key has cfg.key_dtype (int32; key64
+    is not ported yet)."""
+    for rel in rels:
         if rel.key.dtype != cfg.key_dtype:
-            raise TypeError(f"RHO takes {cfg.key_dtype} keys, got "
+            raise TypeError(f"{name} takes {cfg.key_dtype} keys, got "
                             f"{rel.key.dtype}")
-    if dense_pk_applicable(relR, relS, cfg):
-        out = dense_pk_join(relR, relS, cfg)
-        if out is not None:
-            return out
-    pt = PhaseTimer(relR.device)
-    t0 = time.perf_counter()
-    if cfg.use_pallas and not _holds_input_pads(relR.key, relS.key):
-        hinted, cap_rows = skew_plan(relS.key)
-        call = pt.submit_fn if cfg.defer else pt.time_fn
 
-        def attempt(fn, salt):
-            return call("join", fn, relR.key, relR.payload, relS.key,
-                        relS.payload, salt=salt)
 
-        if cfg.materialize:
-            for fn, salt in _materialize_tiers(hinted):
-                m, c, ok, orp, osp, ovf = attempt(fn, salt)
-                if cfg.defer or int(ovf) == 0:
-                    pt.t.phases["total"] = time.perf_counter() - t0
-                    return JoinResult(
-                        matches=m, checksum=c, key=ok, r_payload=orp,
-                        s_payload=osp,
-                        overflow=ovf if cfg.defer else None), pt.t
-        else:
-            for fn, salt, resid in _count_tiers(relR, cfg, hinted, cap_rows):
-                m, c, ovf = attempt(fn, salt)
-                if cfg.defer:
-                    pt.t.phases["total"] = time.perf_counter() - t0
-                    return JoinResult(matches=m, checksum=c,
-                                      overflow=ovf), pt.t
-                if int(ovf) == 0:
-                    pt.t.phases["total"] = time.perf_counter() - t0
-                    return JoinResult(matches=m, checksum=c), pt.t
-                if resid:
-                    # the sampled capacity fails the same way next call
-                    demote_resid(relS.key)
-    # adversarial skew beyond every tier: the exact core
+def walk_ladder(relR: Relation, relS: Relation, cfg: JoinConfig,
+                pt: PhaseTimer, tiers) -> Optional[JoinResult]:
+    """Try the tiers in order (count_tiers' form; for materialize their
+    fn returns (matches, checksum, key, r_payload, s_payload, overflow)).
+    Returns the first result whose overflow is zero, or with cfg.defer the
+    first result unchecked with its overflow counter; None when every tier
+    overflowed.  A compacted-residual tier that overflowed demotes the
+    cached plan, since the sampled capacity fails the same way next
+    call."""
+    call = pt.submit_fn if cfg.defer else pt.time_fn
+    for fn, salt, resid in tiers:
+        out = call("join", fn, relR.key, relR.payload, relS.key,
+                   relS.payload, salt=salt)
+        ovf = out[-1]
+        if cfg.defer or int(ovf) == 0:
+            over = ovf if cfg.defer else None
+            if cfg.materialize:
+                m, c, ok, orp, osp, _ = out
+                return JoinResult(matches=m, checksum=c, key=ok,
+                                  r_payload=orp, s_payload=osp,
+                                  overflow=over)
+            return JoinResult(matches=out[0], checksum=out[1],
+                              overflow=over)
+        if resid:
+            demote_resid(relS.key)
+    return None
+
+
+def exact_core(relR: Relation, relS: Relation, cfg: JoinConfig,
+               pt: PhaseTimer) -> JoinResult:
+    """The ladder's last rung: the exact sort core (ops/mergejoin.py)."""
     if cfg.materialize:
         out = pt.time_fn("join", mergejoin.merge_join_materialize, relR.key,
                          relR.payload, relS.key, relS.payload,
@@ -156,5 +159,27 @@ def RHO(relR: Relation, relS: Relation, cfg: JoinConfig):
     else:
         out = pt.time_fn("join", mergejoin.merge_join_count_keys, relR.key,
                          relS.key)
+    return to_join_result(out)
+
+
+@register("RHO")
+def RHO(relR: Relation, relS: Relation, cfg: JoinConfig):
+    """Parallel radix join: count and materialize, through the ladder."""
+    require_key_dtype("RHO", cfg, relR, relS)
+    if dense_pk_applicable(relR, relS, cfg):
+        out = dense_pk_join(relR, relS, cfg)
+        if out is not None:
+            return out
+    pt = PhaseTimer(relR.device)
+    t0 = time.perf_counter()
+    res = None
+    if cfg.use_pallas and not holds_input_pads(relR.key, relS.key):
+        hinted, cap_rows = skew_plan(relS.key)
+        res = walk_ladder(relR, relS, cfg, pt,
+                          _materialize_tiers(hinted) if cfg.materialize
+                          else count_tiers(relR, cfg, hinted, cap_rows))
+    # adversarial skew beyond every tier: the exact core
+    if res is None:
+        res = exact_core(relR, relS, cfg, pt)
     pt.t.phases["total"] = time.perf_counter() - t0
-    return to_join_result(out), pt.t
+    return res, pt.t

@@ -34,6 +34,8 @@ from aqp_tpu_torch.ops.kernels.lanecompact import (compact_k_fast,
 from aqp_tpu_torch.ops.kernels.rho3 import (MAX_KEY, PAD_S_INPUT, Rho3Params,
                                             rho_join_count_v3,
                                             rho_join_materialize_v3)
+from aqp_tpu_torch.ops.kernels.rstats import Candidates, r_cand_stats_kernel
+from aqp_tpu_torch.ops.mergejoin import last_index
 from aqp_tpu_torch.utils.cache import cached_by_tensor, update_cached
 
 # Candidates: the residual pipeline's per-key overflow threshold is set by
@@ -63,8 +65,7 @@ def _sample_runs(s_key: torch.Tensor, stride: int):
     end = torch.ones_like(start)
     end[:-1] = start[1:]
     idx = torch.arange(n, device=sample.device)
-    run_start = torch.where(start, idx, -1).cummax(0).values
-    return sample, torch.where(end, idx - run_start + 1, 0)
+    return sample, torch.where(end, idx - last_index(start) + 1, 0)
 
 
 def heavy_candidates(s_key: torch.Tensor, h: int = H,
@@ -83,56 +84,23 @@ def heavy_candidates(s_key: torch.Tensor, h: int = H,
     return torch.sort(out).values
 
 
-class _Candidates:
-    """hk sorted once, for lookups of many keys: `first[i]` is the sorted
-    index of the first slot equal to sorted slot i, so duplicate candidates
-    act as one group."""
-
-    def __init__(self, hk: torch.Tensor):
-        self.hs, self.order = torch.sort(hk)
-        self.first = torch.searchsorted(self.hs, self.hs)
-
-    def lookup(self, x: torch.Tensor):
-        """(group, eq): for each x, the first sorted slot not below it and
-        whether that slot equals x."""
-        hs = self.hs.to(x.dtype)
-        g = torch.searchsorted(hs, x).clamp(max=hs.numel() - 1)
-        return g, hs[g] == x
-
-    def group_sum(self, v: torch.Tensor) -> torch.Tensor:
-        """Per sorted slot, the sum of v (given per sorted slot) over its
-        group, at the group's first slot."""
-        return torch.zeros_like(v).index_add_(0, self.first, v)
-
-    def to_slots(self, per_group: torch.Tensor) -> torch.Tensor:
-        """Per-group values back to hk's slot order."""
-        out = torch.empty_like(per_group)
-        out[self.order] = per_group[self.first]
-        return out
-
-
 def r_cand_stats(rk, rp, hk, with_pay: bool = True):
     """Per candidate, (count, payload sum mod 2^32) over R as int64 (h,);
     a slot holding -1 (or any negative key) counts nothing.  Payload sums
-    are 0 when with_pay=False."""
-    cand = _Candidates(hk)
-    g, eq = cand.lookup(rk)
-    eq &= rk >= 0
-    h = hk.numel()
-    gi = g[eq]
-    cnt = torch.zeros(h, dtype=torch.int64, device=rk.device)
-    cnt.index_add_(0, gi, torch.ones_like(gi))
-    pay = torch.zeros_like(cnt)
-    if with_pay:
-        pay.index_add_(0, gi, rp[eq].long() & _U32)
-    return cand.to_slots(cnt), cand.to_slots(pay) & _U32
+    are 0 when with_pay=False.  RSTATS on a CUDA tensor, its plain version
+    on a CPU tensor (ops/kernels/rstats.py)."""
+    return r_cand_stats_kernel(rk, rp, hk, with_pay)
+
+
+# the reference's name of its kernel form (one function serves both here)
+r_cand_stats_pallas = r_cand_stats
 
 
 def _split(sk, hk, pres, rph):
     """Per S row: heavy (its key is a candidate), hit (a candidate present
     in R) and the R payload it joins (the sum of rph over present candidate
     slots equal to its key, mod 2^32)."""
-    cand = _Candidates(hk)
+    cand = Candidates(hk)
     pres_s = pres[cand.order].long()
     rph_s = torch.where(pres_s > 0, rph[cand.order].long() & _U32, 0)
     gp = cand.group_sum(pres_s) > 0
@@ -166,10 +134,16 @@ def _skew_prm() -> Rho3Params:
 
 
 def skew_fused_count(rk, rp, sk, sp, salt: int, with_checksum: bool = True,
-                     resid_cap_rows: int = 0, r_dense: bool = False):
+                     pipeline=None, resid_cap_rows: int = 0,
+                     r_dense: bool = False):
     """Heavy-split count join: candidates, R-side stats, the split pass and
-    the residual pipeline (at _skew_prm).  Returns (matches, checksum,
-    overflow).
+    the residual pipeline.  Returns (matches, checksum, overflow).
+
+    `pipeline(rk, rp, sk, sp, salt, with_checksum) -> (m, c, ovf)` is the
+    residual engine: None takes RHO's pipeline at _skew_prm(); the
+    no-partition family passes its own build/probe pipeline
+    (ops/kernels/nphj.VARIANT_PIPELINES_SKEW), so PHT keeps its identity
+    under skew.
 
     resid_cap_rows > 0 COMPACTS the remapped S to that many 128-wide rows
     before the residual pipeline (the plan's capacity is also the keep-rate
@@ -197,10 +171,22 @@ def skew_fused_count(rk, rp, sk, sp, salt: int, with_checksum: bool = True,
             sk_res, ovf_extra = compact_k_fast(
                 sk_res, resid_cap_rows, pad_key=PAD_S_INPUT, keep_frac=kf)
             sp = torch.zeros_like(sk_res)
-    m, c, ovf = rho_join_count_v3(rk, rp, sk_res, sp, salt=salt,
-                                  with_checksum=with_checksum,
-                                  prm=_skew_prm())
+    if pipeline is None:
+        m, c, ovf = rho_join_count_v3(rk, rp, sk_res, sp, salt=salt,
+                                      with_checksum=with_checksum,
+                                      prm=_skew_prm())
+    else:
+        m, c, ovf = pipeline(rk, rp, sk_res, sp, salt, with_checksum)
     return m + mh, (c + ch) & _U32, ovf + ovf_extra
+
+
+def rho_skew_fused_count(rk, rp, sk, sp, salt: int,
+                         with_checksum: bool = True, resid_cap_rows: int = 0,
+                         r_dense: bool = False):
+    """skew_fused_count with RHO's residual pipeline."""
+    return skew_fused_count(rk, rp, sk, sp, salt,
+                            with_checksum=with_checksum,
+                            resid_cap_rows=resid_cap_rows, r_dense=r_dense)
 
 
 def heavy_contrib(rk, rp, sk, sp, hk):

@@ -65,6 +65,12 @@ SIGNATURES = {
     "scan_bitvector": ([_P, _LL, _I, _I, _P, _P], _I),
     "aggpipe_k3agg": ([_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                        _P, _P, _P, _P, _P, _P, _P], _I),
+    "nphj_k3two": ([_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+                   _I),
+    "nphj_k3two_mat": ([_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                        _P, _P, _P, _P, _P], _I),
+    "rstats_max_h": ([], _I),
+    "rstats": ([_P, _P, _LL, _P, _I, _P, _P, _P], _I),
 }
 
 

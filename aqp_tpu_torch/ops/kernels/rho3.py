@@ -358,6 +358,17 @@ def k2(k1_keys, p1, cnt1, prm: Rho3Params, scale: float):
 _SMEM_LIMIT = 232448  # bytes of shared memory one CTA can have on sm_90
 
 
+def check_region_cap(lib, cap2: int, with_payload: bool, what: str) -> None:
+    """Raise unless the region join (csrc/region_join.cuh, behind K3, K3M,
+    K3TWO and K3TWO_MAT) takes fine slots of cap2 elements."""
+    if cap2 > lib.rho3_k3_max_cap():
+        raise ValueError(f"fine slots of {cap2} exceed {what}'s "
+                         f"{lib.rho3_k3_max_cap()}")
+    if lib.rho3_k3_smem(cap2, with_payload) > _SMEM_LIMIT:
+        raise ValueError(f"fine slots of {cap2} need more shared memory "
+                         "than a CTA has")
+
+
 def k3(k2_keys, p2, cnt2):
     """K3: region join, count + checksum (see k3_plain)."""
     if not on_cuda(k2_keys):
@@ -368,12 +379,7 @@ def k3(k2_keys, p2, cnt2):
     need(p2, "p2", (f1, nbg, f2, cap2), dev)
     need(cnt2, "cnt2", (f1, nbg, f2), dev)
     lib = build.load()
-    if cap2 > lib.rho3_k3_max_cap():
-        raise ValueError(f"fine slots of {cap2} exceed K3's "
-                         f"{lib.rho3_k3_max_cap()}")
-    if lib.rho3_k3_smem(cap2, p2 is not None) > _SMEM_LIMIT:
-        raise ValueError(f"fine slots of {cap2} need more shared memory "
-                         "than a CTA has")
+    check_region_cap(lib, cap2, p2 is not None, "K3")
     matches = torch.zeros((), dtype=torch.int64, device=dev)
     checksum = torch.zeros((), dtype=torch.int32, device=dev)
     err = lib.rho3_k3(ptr(k2_keys), ptr(p2), ptr(cnt2), f1, nbg, f2, cap2,
@@ -395,12 +401,7 @@ def k3m(k2_keys, p2, cnt2, inv: int):
     need(p2, "p2", (f1, nbg, f2, cap2), dev)
     need(cnt2, "cnt2", (f1, nbg, f2), dev)
     lib = build.load()
-    if cap2 > lib.rho3_k3_max_cap():
-        raise ValueError(f"fine slots of {cap2} exceed K3M's "
-                         f"{lib.rho3_k3_max_cap()}")
-    if lib.rho3_k3_smem(cap2, True) > _SMEM_LIMIT:
-        raise ValueError(f"fine slots of {cap2} need more shared memory "
-                         "than a CTA has")
+    check_region_cap(lib, cap2, True, "K3M")
     n = k2_keys.numel()
     ok = torch.empty((n,), dtype=torch.int32, device=dev)
     orp = torch.empty_like(ok)

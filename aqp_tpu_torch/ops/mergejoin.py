@@ -42,11 +42,18 @@ def _packed(r_key: torch.Tensor, s_key: torch.Tensor) -> torch.Tensor:
     return torch.cat([r_key.long() << 1, (s_key.long() << 1) | 1])
 
 
-def _last_index(valid: torch.Tensor) -> torch.Tensor:
+def last_index(valid: torch.Tensor) -> torch.Tensor:
     """Index of the last valid position at or before each position, -1
-    where there is none."""
+    where there is none.  A running count and a scatter, not torch.cummax,
+    which scans a 1-D CUDA tensor in a single thread block."""
+    cnt = torch.cumsum(valid, 0)
     idx = torch.arange(valid.numel(), device=valid.device)
-    return torch.where(valid, idx, -1).cummax(0).values
+    # slot c: the index of the c-th valid position (invalid positions all
+    # write slot 0, which is never read)
+    nth = torch.zeros(valid.numel() + 1, dtype=torch.int64,
+                      device=valid.device)
+    nth.scatter_(0, torch.where(valid, cnt, 0), idx)
+    return torch.where(cnt > 0, nth[cnt], -1)
 
 
 def _propagate(is_r: torch.Tensor, key: torch.Tensor, pay: torch.Tensor):
@@ -55,7 +62,7 @@ def _propagate(is_r: torch.Tensor, key: torch.Tensor, pay: torch.Tensor):
     with the key -1, which an S key of -1 then matches; the mask does not.
     Where no R row precedes, key and payload are those of position 0 and
     must not be read."""
-    last = _last_index(is_r)
+    last = last_index(is_r)
     at = last.clamp(min=0)
     return key[at], pay[at], last >= 0
 
@@ -141,7 +148,7 @@ def _run_base(pk: torch.Tensor):
 def _at_run_start(run_start: torch.Tensor, base: torch.Tensor):
     """`base` as it was at the start of each position's run (0 where no run
     start precedes, as the reference's scan leaves it)."""
-    last = _last_index(run_start)
+    last = last_index(run_start)
     return torch.where(last >= 0, base[last.clamp(min=0)],
                        torch.zeros_like(base))
 

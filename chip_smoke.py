@@ -51,8 +51,21 @@ Phases, each printed on one line with its elapsed seconds:
      branch (64 groups, capacity 64), equal to the sort-based aggregate;
      the leg's steps timed, and K3AGG against its plain version at the
      leg's K2 shapes.
-Each of phases 4, 7, 8, 9 and 10 sets the launch counts to 0 just before
-its main path and reads them just after.  The scale-up column needs 16 GiB
+ 11. the no-partition family at full width: K3TWO (keys-only and with
+     payloads at the default, small, PHT_un, PHT_o and skew-residual
+     geometries, with empty table runs, more table runs than S runs and
+     duplicate R keys), K3TWO_MAT (default and small geometry) and RSTATS
+     (odd lengths, unaligned starts, -1 and repeated candidates) against
+     their plain versions; then run_join on phase 4's relations for PHT
+     (keys-only and checksummed), PHT_no, PHT_un, PHT_o, NPO_st, NPO_no,
+     PHT materialized, one nphj_build probed twice, NPBC_st and PHT's
+     staged engine (profile_phases), and PHT keys-only and checksummed on
+     phase 8's z = 1.5 Zipf S: matches, checksums and live rows equal to the
+     exact core's; K1, K2, K3TWO, K3TWO_MAT and RSTATS launched, K3 not;
+     each call timed, and each new kernel at the headline shapes beside its
+     plain version, its bound and (RSTATS) a PyTorch composition.
+Each of phases 4, 7, 8, 9, 10 and 11 sets the launch counts to 0 just
+before its main path and reads them just after.  The scale-up column needs 16 GiB
 of device memory (18 GiB with its bitvector).  Then one JSON line with the
 kernels' numbers, and last the result line {"ok": true, "device": {...}}.  Any failure exits
 non-zero; a watchdog ends a run that hangs.
@@ -62,6 +75,7 @@ import faulthandler
 
 faulthandler.dump_traceback_later(420, exit=True)
 
+import functools  # noqa: E402
 import json  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
@@ -77,8 +91,9 @@ from aqp_tpu_torch import engine  # noqa: E402
 from aqp_tpu_torch.joins import skewtier  # noqa: E402
 from aqp_tpu_torch.joins.api import run_join  # noqa: E402
 from aqp_tpu_torch.ops import aggregate, mergejoin, scan  # noqa: E402
+from aqp_tpu_torch.ops.hashing import fib_hash32  # noqa: E402
 from aqp_tpu_torch.ops.kernels import (  # noqa: E402
-    aggpipe, build, compact, lanecompact, rho3)
+    aggpipe, build, compact, lanecompact, nphj, rho3, rstats)
 from aqp_tpu_torch.ops.kernels import scan as kscan  # noqa: E402
 from aqp_tpu_torch.relation import Relation  # noqa: E402
 
@@ -99,7 +114,10 @@ SOURCE = {"K1": "aqp_tpu_torch/csrc/rho3.cu",
           "compact_windows_index": "aqp_tpu_torch/csrc/lanecompact.cu",
           "compact_windows_values": "aqp_tpu_torch/csrc/lanecompact.cu",
           "compact_windows_dict": "aqp_tpu_torch/csrc/lanecompact.cu",
-          "K3AGG": "aqp_tpu_torch/csrc/aggpipe.cu"}
+          "K3AGG": "aqp_tpu_torch/csrc/aggpipe.cu",
+          "K3TWO": "aqp_tpu_torch/csrc/nphj.cu",
+          "K3TWO_MAT": "aqp_tpu_torch/csrc/nphj.cu",
+          "RSTATS": "aqp_tpu_torch/csrc/rstats.cu"}
 REPLACES = {"K1": "aqp_tpu/ops/pallas/rho3.py:212",
             "K2": "aqp_tpu/ops/pallas/rho3.py:250",
             "K3": "aqp_tpu/ops/pallas/rho3.py:300",
@@ -113,9 +131,12 @@ REPLACES = {"K1": "aqp_tpu/ops/pallas/rho3.py:212",
             "compact_windows_index": "aqp_tpu/ops/pallas/lanecompact.py:209",
             "compact_windows_values": "aqp_tpu/ops/pallas/lanecompact.py:209",
             "compact_windows_dict": "aqp_tpu/ops/pallas/lanecompact.py:209",
-            "K3AGG": "aqp_tpu/ops/pallas/aggpipe.py:112"}
+            "K3AGG": "aqp_tpu/ops/pallas/aggpipe.py:112",
+            "K3TWO": "aqp_tpu/ops/pallas/nphj.py:137",
+            "K3TWO_MAT": "aqp_tpu/ops/pallas/nphj.py:171",
+            "RSTATS": "aqp_tpu/joins/skewtier.py:113"}
 COUNTERS = (rho3.LAUNCHES, lanecompact.LAUNCHES, compact.LAUNCHES,
-            kscan.LAUNCHES, aggpipe.LAUNCHES)
+            kscan.LAUNCHES, aggpipe.LAUNCHES, nphj.LAUNCHES, rstats.LAUNCHES)
 W = 512                              # the compactor's window, in rows
 # the compaction keeps lo <= key <= hi: every key but the input pad
 KEEP_RANGE = (lanecompact.INT32_MIN + 1, lanecompact.PAD_R_INPUT - 1)
@@ -716,6 +737,10 @@ def main() -> int:
     rows.update(scan_phase())
     # 10. the aggregate at full width, on phase 7's materialize output
     rows.update(aggregate_phase(*agg_input))
+    del agg_input
+    torch.cuda.synchronize()
+    # 11. the no-partition family at full width, on phase 4's relations
+    rows.update(nopart_phase(relR, relS))
     torch.cuda.synchronize()
     say(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         " GiB")
@@ -1289,6 +1314,388 @@ def aggregate_phase(key, spay) -> dict:
         f"{bound:.3f} ms from {nbytes_} bytes)")
     print(json.dumps({"aggregate": out}), flush=True)
     return {"K3AGG": row}
+
+
+NOPART_NAMES = ("PHT", "PHT_no", "PHT_un", "PHT_o", "NPO_st", "NPO_no")
+
+
+def nphj_stage(rk, rp, sk, sp, prm, with_payload):
+    """K3TWO's inputs as nphj_probe makes them (table slots, payloads and
+    counts, then S's) and the routing's overflow."""
+    tk2, tp2, tcnt, t_ovf = nphj.nphj_build(rk, rp, prm,
+                                            with_payload=with_payload)
+    sk2, sp2, scnt, s_ovf = nphj._route_s(sk, sp, prm, rho3.HASH_C,
+                                          with_payload)
+    return (tk2, tp2, tcnt, sk2, sp2, scnt), int(t_ovf) + int(s_ovf)
+
+
+def random_pairs(nr, ns, hi, seed, unique_r=True, hit=1.0):
+    """R keys in [1, hi) (unique or not), S keys drawn from R with
+    probability `hit` and else from [1, hi); seeded payloads."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    rk = torch.randint(1, hi, (nr,), generator=gen, device=DEV)
+    if unique_r:    # a few fewer than nr keys, in random order
+        rk = torch.unique(rk)
+        rk = rk[torch.randperm(rk.numel(), generator=gen, device=DEV)]
+        nr = rk.numel()
+    pick = rk[torch.randint(0, nr, (ns,), generator=gen, device=DEV)]
+    miss = torch.randint(1, hi, (ns,), generator=gen, device=DEV)
+    sk = torch.where(torch.rand(ns, generator=gen, device=DEV) < hit, pick,
+                     miss)
+    rp, sp = (torch.randint(-(1 << 31), 1 << 31, (n,), generator=gen,
+                            device=DEV, dtype=torch.int64).int()
+              for n in (nr, ns))
+    return rk.int(), rp, sk.int(), sp
+
+
+def check_nphj_kernels() -> None:
+    """K3TWO and K3TWO_MAT equal their plain versions exactly."""
+    default = rho3.Rho3Params()
+    cases = [  # (label, prm, R, S, hi, unique R, hit rate, materialize)
+        ("default", default, 1 << 20, 8 << 20, 1 << 29, True, 0.8, True),
+        ("small", SMALL_GEOM, 1 << 14, 1 << 16, 1 << 20, True, 0.8, True),
+        ("PHT_un", nphj.VARIANT_PARAMS["PHT_un"], 1 << 20, 8 << 20, 1 << 29,
+         True, 0.8, False),
+        ("PHT_o", nphj.VARIANT_PARAMS["PHT_o"], 1 << 20, 8 << 20, 1 << 29,
+         True, 0.8, False),
+        ("skew residual", skewtier._skew_prm(), 1 << 20, 8 << 20, 1 << 29,
+         True, 0.8, False),
+        ("empty table runs", default, 2048, 1 << 20, 1 << 29, True, 0.01,
+         False),
+        ("more table runs than S runs", default, 8 << 20, 1 << 20, 1 << 29,
+         True, 0.8, False),
+        ("duplicate R keys", default, 1 << 20, 8 << 20, 1 << 19, False, 0.8,
+         False),
+    ]
+    for label, prm, nr, ns, hi, unique, hit, mat in cases:
+        rk, rp, sk, sp = random_pairs(nr, ns, hi, 1101, unique, hit)
+        for with_payload in (False, True):
+            args, ovf = nphj_stage(rk, rp, sk, sp, prm, with_payload)
+            require(ovf == 0, f"nphj routing overflowed ({label})")
+            got = nphj.k3two(*args)
+            want = nphj.k3two_plain(*args)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, want)
+            require(err == 0, f"K3TWO differs from its plain version by "
+                    f"{err} ({label}, payload={with_payload})")
+            if with_payload and mat:
+                got = nphj.k3two_mat(*args, INV)
+                want = nphj.k3two_mat_plain(*args, INV)
+                torch.cuda.synchronize()
+                err = max_abs_err(got, want)
+                require(err == 0, f"K3TWO_MAT differs from its plain "
+                        f"version by {err} ({label})")
+            del args, got, want
+
+
+def rstats_candidates(rk, seed) -> torch.Tensor:
+    """64 slots: -1s, keys of R (one repeated), keys R lacks."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    present = rk[torch.randint(0, rk.numel(), (48,), generator=gen,
+                               device=DEV)]
+    absent = torch.tensor([0, (1 << 30) - 3, 2_000_000_001], device=DEV,
+                          dtype=torch.int32)
+    hk = torch.cat([torch.full((10,), -1, dtype=torch.int32, device=DEV),
+                    present, present[:3], absent])
+    return hk[torch.randperm(64, generator=gen, device=DEV)]
+
+
+def check_rstats() -> None:
+    """RSTATS equals its plain version exactly: odd lengths, starts off a
+    16-byte boundary (alike and unlike for keys and payloads), duplicate R
+    keys, -1 and repeated candidate slots."""
+    for unique in (True, False):
+        rk, rp, _, _ = random_pairs((1 << 22) + 77, 1, 1 << 23, 1202,
+                                    unique)
+        hk = rstats_candidates(rk, 1203)
+        for keys, pays in ((rk, rp), (rk[1:], rp[1:]), (rk[1:-2], rp[2:-1])):
+            for with_pay in (True, False):
+                got = rstats.r_cand_stats_kernel(keys, pays, hk, with_pay)
+                want = rstats.r_cand_stats_plain(keys, pays, hk, with_pay)
+                torch.cuda.synchronize()
+                err = max_abs_err(got, want)
+                require(err == 0, f"RSTATS differs from its plain version "
+                        f"by {err} (unique R {unique}, n={keys.numel()}, "
+                        f"payload={with_pay})")
+                require(int(got[0].sum()) > 0, "RSTATS counted nothing")
+
+
+def nopart_main_path(relR, relS, zs):
+    """Phase 11's main path through run_join and nphj; returns the results
+    to check, and for z = 1.5 the pipeline attempts of each call."""
+    out = {}
+    out["PHT keys-only"] = run_join(relR, relS, "PHT",
+                                    JoinConfig(checksum=False))[0]
+    for name in NOPART_NAMES:
+        out[name] = run_join(relR, relS, name, JoinConfig())[0]
+    out["PHT materialize"] = run_join(relR, relS, "PHT",
+                                      JoinConfig(materialize=True))[0]
+    table = nphj.nphj_build(relR.key, relR.payload)
+    out["nphj_probe"] = [nphj.nphj_probe(*table, relS.key, relS.payload)
+                         for _ in range(2)]
+    del table
+    out["NPBC_st"] = run_join(relR, relS, "NPBC_st", JoinConfig())[0]
+    out["PHT profile_phases"] = run_join(relR, relS, "PHT", JoinConfig(
+        profile_phases=True))[0]
+    attempts = {}
+    for label, cfg in (("keys-only", JoinConfig(checksum=False)),
+                       ("checksummed", JoinConfig())):
+        s = Relation(key=zs.key.clone(), payload=zs.payload)
+        before = read_launches()
+        out[f"z=1.5 {label}"] = run_join(relR, s, "PHT", cfg)[0]
+        torch.cuda.synchronize()
+        after = read_launches()
+        attempts[label] = {k: after[k] - before[k] for k in after}
+    return out, attempts
+
+
+def check_nopart_results(out, relR, relS, exact, exact_z) -> None:
+    want = (NS, int(exact.checksum))
+    require((int(out["PHT keys-only"].matches),
+             int(out["PHT keys-only"].checksum)) == (NS, 0),
+            "PHT keys-only: result != (|S|, 0)")
+    for name in NOPART_NAMES + ("NPBC_st", "PHT profile_phases"):
+        res = out[name]
+        require((int(res.matches), int(res.checksum)) == want,
+                f"{name}: result != exact core")
+    for m, c, ovf in out["nphj_probe"]:
+        require((int(m), int(c), int(ovf)) == (*want, 0),
+                "nphj_probe on a reused table: result != exact core")
+    mres = out["PHT materialize"]
+    prm = nphj.VARIANT_PARAMS["PHT"]
+    nbg_r = rho3.num_blocks(NR, prm) // prm.group
+    nbg_s = rho3.num_blocks(NS, prm) // prm.group
+    length = prm.f1 * prm.f2 * nphj.mat_chunk(nbg_r, nbg_s, prm.cap2)
+    require((int(mres.matches), int(mres.checksum)) == want,
+            "PHT materialize: matches/checksum != exact core")
+    require(mres.key.numel() == length
+            and int((mres.key == -3).sum()) == length - NS,
+            f"PHT materialize: length {mres.key.numel()} (want {length}) "
+            "or hole count")
+    dense = mergejoin.merge_join_materialize(relR.key, relR.payload,
+                                             relS.key, relS.payload, NS)
+    require(same_live_rows((mres.key, mres.r_payload, mres.s_payload),
+                           (dense.key, dense.r_payload, dense.s_payload)),
+            "PHT materialize: live rows != exact core's")
+    del dense
+    for label, want_c in (("keys-only", 0),
+                          ("checksummed", int(exact_z.checksum))):
+        res = out[f"z=1.5 {label}"]
+        require((int(res.matches), int(res.checksum))
+                == (int(exact_z.matches), want_c),
+                f"z=1.5 PHT {label}: result != exact core")
+
+
+def tier_name(hinted, cap, attempts) -> str:
+    """The count ladder's tier that answered after `attempts` pipeline
+    runs (joins/radix.count_tiers' order)."""
+    if hinted:
+        tiers = (["compacted-residual"] if cap else []) + [
+            "heavy-split", "plain"]
+    else:
+        tiers = ["plain", "heavy-split"]
+    tiers += [f"plain, salt {i}" for i in range(1, len(rho3.RETRY_SALTS))]
+    if not 1 <= attempts <= len(tiers):
+        return f"unknown ({attempts} pipeline runs)"
+    return tiers[attempts - 1] + (" (or the exact core after it)"
+                                  if attempts == len(tiers) else "")
+
+
+def npbc_steps(relR, relS) -> dict:
+    """ms of NPBC_st's fused form step by step (bucket-major sort key, the
+    sort, the run-count scan) and of the exact core it shares the scan's
+    building blocks with (the ladders' last rung)."""
+    nb_bits = min(24, (NR - 1).bit_length())
+
+    def sort_key():
+        b = fib_hash32(torch.cat([relR.key, relS.key]), nb_bits).long()
+        skey = torch.cat([relR.key.long() << 1, (relS.key.long() << 1) | 1])
+        return skey, b * (1 << 33) + (skey + (1 << 32))
+
+    skey, comp = sort_key()
+    order = torch.sort(comp, stable=True).indices
+    pk = skey[order]
+    pay = torch.cat([relR.payload, relS.payload])[order]
+    is_r = (pk & 1) == 0
+    idx = torch.arange(pk.numel(), device=pk.device)
+    steps = {
+        "NPBC_st bucket-major sort key": sort_key,
+        "NPBC_st stable sort (|R| + |S| int64 keys)": lambda: torch.sort(
+            comp, stable=True),
+        "NPBC_st count_general_scan": lambda: mergejoin.count_general_scan(
+            pk, pay),
+        "exact core merge_join_count": lambda: mergejoin.merge_join_count(
+            relR.key, relR.payload, relS.key, relS.payload),
+        "mergejoin.last_index over the sorted union": lambda:
+            mergejoin.last_index(is_r),
+    }
+    out = {k: cuda_ms(f, REPS) for k, f in steps.items()}
+    # what last_index replaced: one thread block scans the whole 1-D tensor
+    out["torch.cummax form of last_index (1 call)"] = cuda_ms(
+        lambda: torch.where(is_r, idx, -1).cummax(0), 1)
+    for k, v in out.items():
+        say(f"nopart step {k}: {v:.3f} ms")
+    return out
+
+
+def nopart_phase(relR, relS) -> dict:
+    """Phase 11: the no-partition family at full width.  Returns the rows
+    of K3TWO, K3TWO_MAT and RSTATS."""
+    check_nphj_kernels()
+    check_rstats()
+    say("nopart kernels: K3TWO (default, small, PHT_un, PHT_o and residual "
+        "geometry; empty table runs, nbg_r > nbg_s, duplicate R keys; "
+        "keys-only and with payloads), K3TWO_MAT (default and small) and "
+        "RSTATS (odd n, unaligned starts, duplicate R, -1 and repeated "
+        "candidates) equal their plain versions")
+    zs = create_relation_zipf(NS, NR, 1.5, seed=22222, random_payload=True,
+                              device=DEV)
+    plan = skewtier.skew_plan(zs.key)     # each call below plans anew
+    torch.cuda.synchronize()
+    reset_launches()
+    out, attempts = nopart_main_path(relR, relS, zs)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    say(f"nopart path launches: {launches}")
+    for name in ("K1", "K2", "K3TWO", "K3TWO_MAT", "RSTATS"):
+        require(launches[name] > 0, f"{name} was not launched on the "
+                "no-partition path")
+    require(launches["K3"] == 0 and launches["K3M"] == 0,
+            f"K3 / K3M ran on the no-partition path: {launches}")
+    require(attempts["checksummed"]["RSTATS"] > 0,
+            "RSTATS was not launched by PHT's checksummed z=1.5 call")
+    exact = mergejoin.merge_join_count(relR.key, relR.payload, relS.key,
+                                       relS.payload)
+    exact_z = mergejoin.merge_join_count(relR.key, relR.payload, zs.key,
+                                         zs.payload)
+    check_nopart_results(out, relR, relS, exact, exact_z)
+    tiers = {k: tier_name(plan[0], plan[1], v["K3TWO"])
+             for k, v in attempts.items()}
+    say(f"nopart: PHT, PHT_no, PHT_un, PHT_o, NPO_st, NPO_no, NPBC_st, the "
+        f"staged engine and a twice-probed table: matches = {NS}, checksum "
+        f"= {int(exact.checksum)} (= exact core); PHT materialize: live rows "
+        f"= exact core's, {out['PHT materialize'].key.numel()} rows per "
+        f"column; z=1.5 (plan {plan}) = exact core, answered by {tiers}")
+    del out
+    torch.cuda.synchronize()
+
+    # each call through the entry points, timed
+    calls = {"PHT keys-only": lambda: run_join(relR, relS, "PHT", JoinConfig(
+        checksum=False))}
+    for name in NOPART_NAMES + ("NPBC_st",):
+        calls[name] = functools.partial(run_join, relR, relS, name,
+                                        JoinConfig())
+    calls["PHT materialize"] = lambda: run_join(relR, relS, "PHT", JoinConfig(
+        materialize=True))
+    table = nphj.nphj_build(relR.key, relR.payload)
+    calls["nphj_build"] = lambda: nphj.nphj_build(relR.key, relR.payload)
+    calls["nphj_probe (reused table)"] = lambda: nphj.nphj_probe(
+        *table, relS.key, relS.payload)
+    zs_key = zs.key.clone()
+    zs_rel = Relation(key=zs_key, payload=zs.payload)
+    calls["z=1.5 PHT keys-only"] = lambda: run_join(relR, zs_rel, "PHT",
+                                                    JoinConfig(checksum=False))
+    calls["z=1.5 PHT checksummed"] = lambda: run_join(relR, zs_rel, "PHT",
+                                                      JoinConfig())
+    res_ms = {k: cuda_ms(f, REPS) for k, f in calls.items()}
+    res_ms["PHT profile_phases (1 call)"] = cuda_ms(
+        lambda: run_join(relR, relS, "PHT", JoinConfig(profile_phases=True)),
+        1)
+    for k, v in res_ms.items():
+        say(f"nopart {k}: {v:.3f} ms/call, {(NR + NS) / v / 1e3:.1f} M "
+            "rows/s")
+    del table
+    res_ms["steps"] = npbc_steps(relR, relS)
+
+    # each new kernel at the headline shapes
+    rows = {}
+    for with_payload in (False, True):
+        args, ovf = nphj_stage(relR.key, relR.payload, relS.key,
+                               relS.payload, rho3.Rho3Params(), with_payload)
+        require(ovf == 0, "headline nphj routing overflowed")
+        tcnt, scnt = args[2], args[5]
+        real = int(tcnt.long().sum() + scnt.long().sum())
+        got = nphj.k3two(*args)
+        err = max_abs_err(got, nphj.k3two_plain(*args))
+        require(err == 0, "K3TWO differs from its plain version at the "
+                f"headline shape (payload={with_payload})")
+        k_ms = cuda_ms(lambda: nphj.k3two(*args), REPS)
+        p_ms = cuda_ms(lambda: nphj.k3two_plain(*args), 1)
+        nbytes_ = (real * 4 * (2 if with_payload else 1)
+                   + nbytes(tcnt, scnt) + 16)
+        bound = nbytes_ / HBM_BYTES_PER_S * 1e3
+        row = kernel_row("K3TWO", err, k_ms, p_ms, bound)
+        row["launches"] = launches["K3TWO"]
+        say(f"K3TWO {'payload' if with_payload else 'keys-only'} (nbg_r = "
+            f"{args[0].shape[1]}, nbg_s = {args[3].shape[1]}): {k_ms:.3f} ms "
+            f"(plain {p_ms:.3f} ms, bound {bound:.3f} ms)")
+        if with_payload:
+            print(json.dumps({"with_payload": row}), flush=True)
+            got = nphj.k3two_mat(*args, INV)
+            err = max_abs_err(got, nphj.k3two_mat_plain(*args, INV))
+            require(err == 0, "K3TWO_MAT differs from its plain version at "
+                    "the headline shape")
+            n_out = got[2].numel()
+            del got
+            k_ms = cuda_ms(lambda: nphj.k3two_mat(*args, INV), REPS)
+            p_ms = cuda_ms(lambda: nphj.k3two_mat_plain(*args, INV), 1)
+            nbytes_ = real * 8 + nbytes(tcnt, scnt) + 16 + 3 * n_out * 4
+            bound = nbytes_ / HBM_BYTES_PER_S * 1e3
+            rows["K3TWO_MAT"] = kernel_row("K3TWO_MAT", err, k_ms, p_ms,
+                                           bound)
+            rows["K3TWO_MAT"]["launches"] = launches["K3TWO_MAT"]
+            say(f"K3TWO_MAT ({n_out} rows per column): {k_ms:.3f} ms "
+                f"(plain {p_ms:.3f} ms, bound {bound:.3f} ms)")
+        else:
+            rows["K3TWO"] = row
+        del args
+    # RSTATS at the z = 1.5 checksummed call's shapes
+    hk = skewtier.heavy_candidates(zs.key)
+    for with_pay in (True, False):
+        got = rstats.r_cand_stats_kernel(relR.key, relR.payload, hk, with_pay)
+        want = rstats.r_cand_stats_plain(relR.key, relR.payload, hk,
+                                         with_pay)
+        err = max_abs_err(got, want)
+        require(err == 0, "RSTATS differs from its plain version at the "
+                f"headline shape (payload={with_pay})")
+        k_ms = cuda_ms(lambda: rstats.r_cand_stats_kernel(
+            relR.key, relR.payload, hk, with_pay), REPS)
+        p_ms = cuda_ms(lambda: rstats.r_cand_stats_plain(
+            relR.key, relR.payload, hk, with_pay), 1)
+
+        def composition(with_pay=with_pay):
+            hs = torch.sort(hk).values
+            g = torch.searchsorted(hs, relR.key).clamp(max=hs.numel() - 1)
+            g = torch.where(hs[g] == relR.key, g, hs.numel())
+            cnt = torch.bincount(g, minlength=hs.numel() + 1)
+            if with_pay:
+                return cnt, torch.bincount(g, weights=relR.payload.double(),
+                                           minlength=hs.numel() + 1)
+            return cnt
+
+        lib_ms = cuda_ms(composition, REPS)
+        nbytes_ = relR.key.numel() * 4 * (2 if with_pay else 1) + 64 * 4 \
+            + 64 * 16
+        bound = nbytes_ / HBM_BYTES_PER_S * 1e3
+        lib_call = ("torch.searchsorted of R into the sorted candidates + "
+                    + ("two torch.bincount" if with_pay
+                       else "one torch.bincount"))
+        row = kernel_row("RSTATS", err, k_ms, p_ms, bound, lib_ms, lib_call)
+        row["launches"] = launches["RSTATS"]
+        say(f"RSTATS {'payload' if with_pay else 'keys-only'} (|R| = {NR}, "
+            f"{int((hk >= 0).sum())} candidates): {k_ms:.3f} ms (plain "
+            f"{p_ms:.3f} ms, bound {bound:.3f} ms, {lib_call} "
+            f"{lib_ms:.3f} ms)")
+        if with_pay:
+            rows["RSTATS"] = row
+        else:
+            rows["RSTATS"]["keys_only"] = {k: row[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")}
+    print(json.dumps({"nopart": {"ms": res_ms, "z=1.5 tiers": tiers,
+                                 "z=1.5 plan": list(plan),
+                                 "launches": launches}}), flush=True)
+    del zs, zs_rel, zs_key
+    return rows
 
 
 if __name__ == "__main__":

@@ -44,7 +44,10 @@ def test_imports_without_jax():
             "aqp_tpu_torch.ops.kernels.lanecompact, "
             "aqp_tpu_torch.ops.kernels.scan, "
             "aqp_tpu_torch.ops.kernels.aggpipe, "
+            "aqp_tpu_torch.ops.kernels.nphj, "
+            "aqp_tpu_torch.ops.kernels.rstats, "
             "aqp_tpu_torch.ops.scan, aqp_tpu_torch.ops.aggregate, "
+            "aqp_tpu_torch.ops.hashing, aqp_tpu_torch.joins.nopart, "
             "aqp_tpu_torch.joins.skewtier; print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -82,6 +85,8 @@ def test_entry_points_without_device_raise_when_no_cuda():
         lambda: create_relation_zipf(32, 16, 1.5),
         lambda: Relation.from_numpy(np.arange(4, dtype=np.int32)),
         lambda: run_join(r, r),
+        lambda: run_join(r, r, "PHT"),
+        lambda: run_join(r, r, "NPBC_st"),
         lambda: finalize_join(r, r, None, None),
         lambda: engine.rho_join_count_fused(*cols),
         lambda: engine.rho_join_count_checked(*cols),
@@ -121,7 +126,7 @@ def test_entry_points_without_device_raise_when_no_cuda():
 
 def test_kernel_wrappers_reject_other_devices():
     from aqp_tpu_torch.ops.kernels import (aggpipe, compact, lanecompact,
-                                           rho3, scan)
+                                           nphj, rho3, rstats, scan)
 
     meta = torch.zeros(8, dtype=torch.int32, device="meta")
     rows = torch.zeros((4, 128), dtype=torch.int32, device="meta")
@@ -139,6 +144,11 @@ def test_kernel_wrappers_reject_other_devices():
         lambda: lanecompact._compact_windows(meta.to(torch.uint8), [], 0, 1,
                                              8, (), with_ids=True),
         lambda: aggpipe.k3agg(slots, slots, meta[:4].view(2, 1, 2)),
+        lambda: nphj.k3two(slots, None, meta[:4].view(2, 1, 2), slots, None,
+                           meta[:4].view(2, 1, 2)),
+        lambda: nphj.k3two_mat(slots, slots, meta[:4].view(2, 1, 2), slots,
+                               slots, meta[:4].view(2, 1, 2), 1),
+        lambda: rstats.r_cand_stats_kernel(meta, meta, meta[:4]),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="unsupported device"):

@@ -174,3 +174,16 @@ def test_s_key_minus_one_has_no_phantom_match(core):
             (-1, -1, 100), (10, 7, 200)]
     assert int(t.matches) == 1
     assert int(j.matches) == 2       # the reference's phantom match
+
+
+@pytest.mark.parametrize("fill", [0.0, 0.01, 0.5, 1.0])
+def test_last_index_equals_a_running_max(fill):
+    """last_index (a count and a scatter) against the running
+    max of the valid positions' indices."""
+    rng = np.random.default_rng(int(fill * 100))
+    for n in (0, 1, 7, 10_000):
+        valid = torch.from_numpy(rng.random(n) < fill)
+        idx = torch.arange(n)
+        want = torch.where(valid, idx, -1).cummax(0).values if n else idx
+        got = tmj.last_index(valid)
+        assert got.dtype == torch.int64 and torch.equal(got, want)

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from aqp_tpu_torch.ops.kernels import (aggpipe, build, compact, lanecompact,
-                                       rho3, scan)
+                                       nphj, rho3, rstats, scan)
 
 KINDS = {ctypes.c_void_p: (int, type(None)), ctypes.c_int: (int,),
          ctypes.c_longlong: (int,), ctypes.c_float: (float,)}
@@ -34,6 +34,8 @@ class FakeLib:
                 return 32768
             if name == "rho3_k3_smem":
                 return args[0] * 4 * (3 if args[1] else 2)
+            if name == "rstats_max_h":
+                return 1024
             return 0
 
         return fn
@@ -43,7 +45,7 @@ class FakeLib:
 def lib(monkeypatch):
     fake = FakeLib()
     monkeypatch.setattr(build, "load", lambda: fake)
-    for mod in (rho3, compact, lanecompact, scan, aggpipe):
+    for mod in (rho3, compact, lanecompact, scan, aggpipe, nphj, rstats):
         monkeypatch.setattr(mod, "on_cuda", lambda x: True)
         monkeypatch.setattr(mod, "stream", lambda device: 0)
     return fake
@@ -56,7 +58,8 @@ def _i32(*shape):
 def _counters():
     out = {}
     for c in (rho3.LAUNCHES, lanecompact.LAUNCHES, compact.LAUNCHES,
-              scan.LAUNCHES, aggpipe.LAUNCHES):
+              scan.LAUNCHES, aggpipe.LAUNCHES, nphj.LAUNCHES,
+              rstats.LAUNCHES):
         out.update(c)
     return out
 
@@ -65,7 +68,8 @@ NO_LAUNCH = {"K1": 0, "K2": 0, "K3": 0, "K3M": 0, "compact_windows": 0,
              "compact_windows_index": 0, "compact_windows_values": 0,
              "compact_windows_dict": 0, "scatter_segments": 0,
              "scatter_segments_one": 0, "scan_count": 0, "scan_sum": 0,
-             "scan_bitvector": 0, "K3AGG": 0}
+             "scan_bitvector": 0, "K3AGG": 0, "K3TWO": 0, "K3TWO_MAT": 0,
+             "RSTATS": 0}
 
 
 def test_each_wrapper_calls_its_launcher_once(lib):
@@ -163,3 +167,78 @@ def test_wrappers_reject_what_the_kernels_do_not_take(lib):
                                      dict_tables=(_i32(128), _i32(128)))
     with pytest.raises(TypeError, match="int32"):
         aggpipe.k3agg(slots.long(), slots, cnt)
+
+
+def test_nphj_and_rstats_wrappers_call_their_launchers_once(lib):
+    f1, nbg_r, nbg_s, f2, cap2 = 3, 2, 5, 4, 256
+    tk, sk = _i32(f1, nbg_r, f2, cap2), _i32(f1, nbg_s, f2, cap2)
+    tc, sc = _i32(f1, nbg_r, f2), _i32(f1, nbg_s, f2)
+    before = _counters()
+    for tp, sp in ((None, None), (tk, sk)):
+        m, c = nphj.k3two(tk, tp, tc, sk, sp, sc)
+        assert m.shape == c.shape == () and m.dtype == c.dtype == torch.int64
+    m, c, ok, orp, osp = nphj.k3two_mat(tk, tk, tc, sk, sk, sc, 7)
+    n = f1 * f2 * 2 * max(nbg_r, nbg_s) * cap2
+    assert ok.shape == orp.shape == osp.shape == (n,)
+    for rp, with_pay in ((_i32(1001), True), (None, False)):
+        cnt, pay = rstats.r_cand_stats_kernel(_i32(1001), rp, _i32(64),
+                                              with_pay)
+        assert cnt.shape == pay.shape == (64,)
+        assert cnt.dtype == pay.dtype == torch.int64
+    assert [n for n in lib.calls if n.startswith(("nphj", "rstats"))
+            and n != "rstats_max_h"] == [
+        "nphj_k3two", "nphj_k3two", "nphj_k3two_mat", "rstats", "rstats"]
+    after = _counters()
+    assert {k: after[k] - before[k] for k in after} == dict(
+        NO_LAUNCH, K3TWO=2, K3TWO_MAT=1, RSTATS=2)
+
+
+def test_nphj_and_rstats_wrappers_reject_what_the_kernels_do_not_take(lib):
+    slots, cnt = _i32(2, 1, 4, 128), _i32(2, 1, 4)
+    with pytest.raises(ValueError, match="both"):
+        nphj.k3two(slots, slots, cnt, slots, None, cnt)
+    with pytest.raises(ValueError, match="needs the payloads"):
+        nphj.k3two_mat(slots, None, cnt, slots, None, cnt, 1)
+    with pytest.raises(ValueError, match="shape"):
+        nphj.k3two(slots, None, cnt, _i32(2, 1, 8, 128), None,
+                   _i32(2, 1, 8))
+    with pytest.raises(TypeError, match="int32"):
+        rstats.r_cand_stats_kernel(_i32(8).long(), None, _i32(4), False)
+    with pytest.raises(ValueError, match="payloads"):
+        rstats.r_cand_stats_kernel(_i32(8), None, _i32(4), True)
+    with pytest.raises(ValueError, match="candidates"):
+        rstats.r_cand_stats_kernel(_i32(8), None, _i32(2000), False)
+
+
+def test_new_wrappers_on_a_cuda_tensor_raise_without_the_kernels(
+        monkeypatch, tmp_path):
+    """Where no kernel can be built, a CUDA tensor makes the wrapper raise;
+    it never falls back to the plain version."""
+    def nvcc_missing():
+        raise RuntimeError("nvcc not found")
+
+    def plain_called(*args, **kw):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(build, "find_nvcc", nvcc_missing)
+    build.load.cache_clear()
+    for mod in (nphj, rstats):
+        monkeypatch.setattr(mod, "on_cuda", lambda x: True)
+        monkeypatch.setattr(mod, "stream", lambda device: 0)
+    for name in ("k3two_plain", "k3two_mat_plain"):
+        monkeypatch.setattr(nphj, name, plain_called)
+    monkeypatch.setattr(rstats, "r_cand_stats_plain", plain_called)
+    slots, cnt = _i32(2, 1, 4, 128), _i32(2, 1, 4)
+    before = _counters()
+    try:
+        for call in (lambda: nphj.k3two(slots, None, cnt, slots, None, cnt),
+                     lambda: nphj.k3two_mat(slots, slots, cnt, slots, slots,
+                                            cnt, 1),
+                     lambda: rstats.r_cand_stats_kernel(_i32(8), _i32(8),
+                                                        _i32(4))):
+            with pytest.raises(RuntimeError, match="nvcc not found"):
+                call()
+    finally:
+        build.load.cache_clear()
+    assert _counters() == before
