@@ -1,8 +1,10 @@
 """Join dispatcher (counterpart of aqp_tpu/joins/api.py).
 
-Ported so far: RHO (joins/radix.py) and the no-partition family PHT,
-PHT_no, PHT_un, PHT_o, NPO_st, NPO_no and NPBC_st (joins/nopart.py).  Any
-other name raises ValueError naming the registered algorithms.
+Ported so far: the radix family RHO, RHO_seq, RHT and RSM
+(joins/radix.py), the sort-merge engines PSM and MWAY (joins/sortmerge.py)
+and the no-partition family PHT, PHT_no, PHT_un, PHT_o, NPO_st, NPO_no and
+NPBC_st (joins/nopart.py).  Any other name raises ValueError naming the
+registered algorithms.
 """
 
 from __future__ import annotations
@@ -72,3 +74,4 @@ def finalize_join(relR: Relation, relS: Relation, result: JoinResult,
 # Engine registration side effects:
 from aqp_tpu_torch.joins import radix as _rx  # noqa: E402,F401
 from aqp_tpu_torch.joins import nopart as _np  # noqa: E402,F401
+from aqp_tpu_torch.joins import sortmerge as _sm  # noqa: E402,F401

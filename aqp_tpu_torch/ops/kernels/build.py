@@ -71,6 +71,8 @@ SIGNATURES = {
                         _P, _P, _P, _P, _P], _I),
     "rstats_max_h": ([], _I),
     "rstats": ([_P, _P, _LL, _P, _I, _P, _P, _P], _I),
+    "sort_blocks": ([_P, _P, _LL, _I, _P, _P, _P, _P], _I),
+    "sort_hist": ([_P, _P, _LL, _I, _I, _F, _P, _P, _P, _P, _P], _I),
 }
 
 

@@ -97,3 +97,28 @@ class PhaseTimer:
         out = fn(*args, **kw)
         self._add(name, time.perf_counter() - t0)
         return out
+
+
+def best_ms(fn, device, iters: int = 3) -> float:
+    """Least milliseconds of one call of fn over `iters` calls after one
+    warm-up call: CUDA events around each call on a CUDA device (the
+    device's time to finish it), perf_counter on the CPU."""
+    device = torch.device(device)
+    fn()
+    best = float("inf")
+    for _ in range(iters):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            ms = a.elapsed_time(b)
+        else:
+            t0 = time.perf_counter()
+            fn()
+            ms = (time.perf_counter() - t0) * 1e3
+        best = min(best, ms)
+    return best

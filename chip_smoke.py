@@ -64,7 +64,24 @@ Phases, each printed on one line with its elapsed seconds:
      exact core's; K1, K2, K3TWO, K3TWO_MAT and RSTATS launched, K3 not;
      each call timed, and each new kernel at the headline shapes beside its
      plain version, its bound and (RSTATS) a PyTorch composition.
-Each of phases 4, 7, 8, 9, 10 and 11 sets the launch counts to 0 just
+ 12. the partition-and-sort side at full width: the block sort (B13) and
+     the block sort with bucket starts (B12, at F = 1, 16 and 127) against
+     their plain versions at sub = 128, 512 and 1024 (random keys, all keys
+     equal, a few runs of equal keys, a third KEY_PAD_INT); then the main
+     path: the radix-partition microbenchmark (2^26 rows: histograms,
+     partition passes, sort+hist, segment scatter), the memory benchmark
+     (2^24 and 2^27 rows, its block sort at sub = 512) and compact_kp over
+     2^26 rows at 30% kept (live rows equal a masked_select oracle,
+     overflow 0; overflow > 0 at half the rows it needs), with B12 and B13
+     launched; then run_join on phase 4's relations for RHO_seq, RHT, RSM,
+     MWAY and PSM (keys-only and checksummed), RHT and MWAY materialized,
+     RHO with use_pallas=False and with profile_phases, RHT on an R with
+     duplicate keys, and MWAY on phase 8's z = 1.5 S (its range route
+     overflows, the fallback answers): equal to the exact cores, with K1,
+     K2, K3 and K3M launched by MWAY's range route; each call timed, and
+     B12 and B13 at the drivers' shapes beside their plain versions, their
+     bounds and one torch.sort of the same 64-bit composite.
+Each of phases 4, 7, 8, 9, 10, 11 and 12 sets the launch counts to 0 just
 before its main path and reads them just after.  The scale-up column needs 16 GiB
 of device memory (18 GiB with its bitvector).  Then one JSON line with the
 kernels' numbers, and last the result line {"ok": true, "device": {...}}.  Any failure exits
@@ -88,12 +105,13 @@ from aqp_tpu_torch.config import JoinConfig  # noqa: E402
 from aqp_tpu_torch.data import (  # noqa: E402
     create_relation_fk, create_relation_pk, create_relation_zipf)
 from aqp_tpu_torch import engine  # noqa: E402
-from aqp_tpu_torch.joins import skewtier  # noqa: E402
+from aqp_tpu_torch.experiments import membench, partition_bench  # noqa: E402
+from aqp_tpu_torch.joins import skewtier, sortmerge  # noqa: E402
 from aqp_tpu_torch.joins.api import run_join  # noqa: E402
 from aqp_tpu_torch.ops import aggregate, mergejoin, scan  # noqa: E402
 from aqp_tpu_torch.ops.hashing import fib_hash32  # noqa: E402
 from aqp_tpu_torch.ops.kernels import (  # noqa: E402
-    aggpipe, build, compact, lanecompact, nphj, rho3, rstats)
+    aggpipe, blocksort, build, compact, lanecompact, nphj, rho3, rstats)
 from aqp_tpu_torch.ops.kernels import scan as kscan  # noqa: E402
 from aqp_tpu_torch.relation import Relation  # noqa: E402
 
@@ -117,7 +135,9 @@ SOURCE = {"K1": "aqp_tpu_torch/csrc/rho3.cu",
           "K3AGG": "aqp_tpu_torch/csrc/aggpipe.cu",
           "K3TWO": "aqp_tpu_torch/csrc/nphj.cu",
           "K3TWO_MAT": "aqp_tpu_torch/csrc/nphj.cu",
-          "RSTATS": "aqp_tpu_torch/csrc/rstats.cu"}
+          "RSTATS": "aqp_tpu_torch/csrc/rstats.cu",
+          "sort_hist": "aqp_tpu_torch/csrc/blocksort.cu",
+          "sort_blocks": "aqp_tpu_torch/csrc/blocksort.cu"}
 REPLACES = {"K1": "aqp_tpu/ops/pallas/rho3.py:212",
             "K2": "aqp_tpu/ops/pallas/rho3.py:250",
             "K3": "aqp_tpu/ops/pallas/rho3.py:300",
@@ -134,9 +154,12 @@ REPLACES = {"K1": "aqp_tpu/ops/pallas/rho3.py:212",
             "K3AGG": "aqp_tpu/ops/pallas/aggpipe.py:112",
             "K3TWO": "aqp_tpu/ops/pallas/nphj.py:137",
             "K3TWO_MAT": "aqp_tpu/ops/pallas/nphj.py:171",
-            "RSTATS": "aqp_tpu/joins/skewtier.py:113"}
+            "RSTATS": "aqp_tpu/joins/skewtier.py:113",
+            "sort_hist": "aqp_tpu/ops/pallas/compact.py:86",
+            "sort_blocks": "aqp_tpu/ops/pallas/blocksort.py:103"}
 COUNTERS = (rho3.LAUNCHES, lanecompact.LAUNCHES, compact.LAUNCHES,
-            kscan.LAUNCHES, aggpipe.LAUNCHES, nphj.LAUNCHES, rstats.LAUNCHES)
+            kscan.LAUNCHES, aggpipe.LAUNCHES, nphj.LAUNCHES, rstats.LAUNCHES,
+            blocksort.LAUNCHES)
 W = 512                              # the compactor's window, in rows
 # the compaction keeps lo <= key <= hi: every key but the input pad
 KEEP_RANGE = (lanecompact.INT32_MIN + 1, lanecompact.PAD_R_INPUT - 1)
@@ -742,6 +765,9 @@ def main() -> int:
     # 11. the no-partition family at full width, on phase 4's relations
     rows.update(nopart_phase(relR, relS))
     torch.cuda.synchronize()
+    # 12. the partition-and-sort side at full width, on phase 4's relations
+    rows.update(sort_phase(relR, relS))
+    torch.cuda.synchronize()
     say(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         " GiB")
     print(json.dumps({"kernels": [rows[k] for k in SOURCE]}), flush=True)
@@ -1095,6 +1121,11 @@ def scan_phase() -> dict:
         rows[name] = kernel_row(name, err, k_ms, p_ms, bound, lib_ms,
                                 lib_call)
         rows[name]["launches"] = launches[name]
+        if name == "sort_blocks":     # how the time grows with the block
+            rows[name]["ms by sub"] = {sub: cuda_ms(
+                functools.partial(blocksort.sort_blocks, key, pay, sub),
+                REPS) for sub in (128, 256, 512, 1024)}
+            say(f"sort_blocks ms by sub: {rows[name]['ms by sub']}")
         fn = getattr(kscan, f"scan_{mode}_pallas")
         extra = tables if mode == "dict" else ()
         e_ms = cuda_ms(lambda: fn(col, *extra, 0, hi, n // 128,
@@ -1134,6 +1165,11 @@ def scan_phase() -> dict:
         rows[name] = kernel_row(name, err, k_ms, p_ms, bound, lib_ms,
                                 lib_call)
         rows[name]["launches"] = launches[name]
+        if name == "sort_blocks":     # how the time grows with the block
+            rows[name]["ms by sub"] = {sub: cuda_ms(
+                functools.partial(blocksort.sort_blocks, key, pay, sub),
+                REPS) for sub in (128, 256, 512, 1024)}
+            say(f"sort_blocks ms by sub: {rows[name]['ms by sub']}")
         say(f"{name} (2^30 rows): {k_ms:.3f} ms, {READ_ROWS / k_ms / 1e6:.1f}"
             f" GB/s (plain {p_ms:.3f} ms, bound {bound:.3f} ms"
             + (f", {lib_call.split(' (')[0]} {lib_ms:.3f} ms)" if lib_ms
@@ -1695,6 +1731,336 @@ def nopart_phase(relR, relS) -> dict:
                                  "z=1.5 plan": list(plan),
                                  "launches": launches}}), flush=True)
     del zs, zs_rel, zs_key
+    return rows
+
+
+RADIX_NAMES = ("RHO_seq", "RHT", "RSM", "MWAY", "PSM")
+SORT_N = 1 << 27                    # membench.py's large size
+HIST_N = 1 << 26                    # partition_bench.py's N
+HIST_SUB, HIST_F = 512, 16          # its sort+hist leg
+COMPACT_ROWS = 1 << 26
+
+
+def hist_scale(F: int) -> float:
+    """partition_bench.py's scale F / 2^30 in float32; 0 for one bucket
+    (compact_kp's)."""
+    if F == 1:
+        return 0.0
+    return (torch.tensor(F, dtype=torch.float32) / (1 << 30)).item()
+
+
+def sort_cases(n: int, seed: int):
+    """(label, key, payload) on the card: random keys, every key equal, a
+    few runs of equal keys, and a third of the keys KEY_PAD_INT."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+
+    def i32(lo, hi):
+        return torch.randint(lo, hi, (n,), generator=gen, device=DEV,
+                             dtype=torch.int64).int()
+
+    key, pay = i32(-(1 << 31), 1 << 31), i32(-(1 << 31), 1 << 31)
+    pads = torch.where(torch.rand(n, generator=gen, device=DEV) < 0.3,
+                       blocksort.KEY_PAD_INT, key)
+    return [("random", key, pay), ("all equal", torch.full_like(key, 7), pay),
+            ("few runs", i32(0, 5), pay), ("pads", pads, pay)]
+
+
+def check_sort_kernels() -> None:
+    """B13 and B12 equal their plain versions exactly, at sub = 128, 512
+    and 1024 (three blocks) and, for B12, F = 1, 16 and 127."""
+    for sub in (128, 512, 1024):
+        for label, key, pay in sort_cases(3 * sub * 128, 1300 + sub):
+            got = blocksort.sort_blocks(key, pay, sub)
+            want = blocksort.sort_blocks_plain(key, pay, sub)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, want)
+            require(err == 0, f"sort_blocks differs from its plain version "
+                    f"by {err} (sub={sub}, {label})")
+            for F in (1, 16, 127):
+                got = compact.sort_hist(key, pay, hist_scale(F), sub, F)
+                want = compact.sort_hist_plain(key, pay, hist_scale(F), sub,
+                                               F)
+                torch.cuda.synchronize()
+                err = max_abs_err(got, want)
+                require(err == 0, f"sort_hist differs from its plain "
+                        f"version by {err} (sub={sub}, F={F}, {label})")
+
+
+def compact_input(seed: int):
+    """COMPACT_ROWS keys below PAD_R_INPUT and payloads, 30% kept: the rows
+    not kept carry PAD_S_INPUT."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    key = torch.randint(0, compact.PAD_R_INPUT, (COMPACT_ROWS,),
+                        generator=gen, device=DEV, dtype=torch.int32)
+    pay = torch.randint(-(1 << 31), 1 << 31, (COMPACT_ROWS,), generator=gen,
+                        device=DEV, dtype=torch.int64).int()
+    keep = torch.rand(COMPACT_ROWS, generator=gen, device=DEV) < 0.3
+    return torch.where(keep, key, compact.PAD_S_INPUT), pay, keep
+
+
+def compact_caps(keep) -> tuple:
+    """(rows enough for the kept keys with each block's boundary row, half
+    the rows they need)."""
+    need = -(-int(keep.sum()) // 128)
+    return need + COMPACT_ROWS // (1024 * 128), need // 2
+
+
+def sorted_pairs(key, pay) -> torch.Tensor:
+    return torch.sort(blocksort.composite(key, pay)).values
+
+
+def check_compact_kp(mkey, pay, keep, out, out_short) -> None:
+    ok, op, ovf = out
+    live = ok < compact.PAD_R_INPUT
+    require(int(ovf) == 0, f"compact_kp: overflow {int(ovf)}")
+    require(torch.equal(sorted_pairs(ok[live], op[live]),
+                        sorted_pairs(torch.masked_select(mkey, keep),
+                                     torch.masked_select(pay, keep))),
+            "compact_kp: live rows != the masked_select oracle's")
+    require(int(out_short[2]) > 0,
+            "compact_kp at half the rows it needs reported no overflow")
+
+
+RHO_FRAME = (("RHO use_pallas=False keys-only",
+              JoinConfig(use_pallas=False, checksum=False)),
+             ("RHO use_pallas=False", JoinConfig(use_pallas=False)),
+             ("RHO use_pallas=False profile_phases",
+              JoinConfig(use_pallas=False, profile_phases=True)),
+             ("RHO profile_phases", JoinConfig(profile_phases=True)))
+
+
+def radix_main_path(relR, relS, zs, dup):
+    """Phase 12's engines through run_join; returns {label: JoinResult}."""
+    out = {}
+    for name in RADIX_NAMES:
+        out[f"{name} keys-only"] = run_join(relR, relS, name, JoinConfig(
+            checksum=False))[0]
+        out[name] = run_join(relR, relS, name, JoinConfig())[0]
+    for name in ("RHT", "MWAY"):
+        out[f"{name} materialize"] = run_join(relR, relS, name, JoinConfig(
+            materialize=True))[0]
+    for label, cfg in RHO_FRAME:
+        out[label] = run_join(relR, relS, "RHO", cfg)[0]
+    out["RHT duplicate R"] = run_join(*dup, "RHT", JoinConfig())[0]
+    for label, cfg in (("keys-only", JoinConfig(checksum=False)),
+                       ("checksummed", JoinConfig())):
+        s = Relation(key=zs.key.clone(), payload=zs.payload)
+        out[f"MWAY z=1.5 {label}"] = run_join(relR, s, "MWAY", cfg)[0]
+    return out
+
+
+def check_radix_results(out, relR, relS, zs, dup) -> None:
+    exact = mergejoin.merge_join_count(relR.key, relR.payload, relS.key,
+                                       relS.payload)
+    want = (NS, int(exact.checksum))
+    for label, res in out.items():
+        if label.startswith(("MWAY z=1.5", "RHT duplicate")) or \
+                label.endswith("materialize"):
+            continue
+        # only the staged RHO frame sums payloads on a keys-only call
+        cs = want[1] if "keys-only" not in label else 0
+        require((int(res.matches), int(res.checksum)) == (NS, cs),
+                f"{label}: result != exact core")
+    dense = mergejoin.merge_join_materialize(relR.key, relR.payload,
+                                             relS.key, relS.payload, NS)
+    for name in ("RHT", "MWAY"):
+        res = out[f"{name} materialize"]
+        require((int(res.matches), int(res.checksum)) == want,
+                f"{name} materialize: matches/checksum != exact core")
+        require(same_live_rows((res.key, res.r_payload, res.s_payload),
+                               (dense.key, dense.r_payload, dense.s_payload)),
+                f"{name} materialize: live rows != exact core's")
+    del dense
+    gen = mergejoin.merge_join_count_general(dup[0].key, dup[0].payload,
+                                             dup[1].key, dup[1].payload)
+    res = out["RHT duplicate R"]
+    require((int(res.matches), int(res.checksum))
+            == (int(gen.matches), int(gen.checksum))
+            and int(gen.matches) > NS,
+            "RHT on duplicate R keys != merge_join_count_general")
+    exact_z = mergejoin.merge_join_count(relR.key, relR.payload, zs.key,
+                                         zs.payload)
+    for label, cs in (("keys-only", 0), ("checksummed",
+                                         int(exact_z.checksum))):
+        res = out[f"MWAY z=1.5 {label}"]
+        require((int(res.matches), int(res.checksum))
+                == (int(exact_z.matches), cs),
+                f"MWAY z=1.5 {label}: result != exact core")
+
+
+def b12_library(comp, scale, sub, F):
+    """One torch.sort of the 64-bit composites along each block, then the
+    rows' buckets and one torch.searchsorted for the starts."""
+    nb = comp.numel() // (sub * 128)
+    srt = torch.sort(comp.view(nb, sub * 128), dim=1).values
+    lead = (srt.view(nb, sub, 128)[:, :, 0] >> 32).int()
+    b = compact.row_buckets(lead, scale, F)
+    f = torch.arange(F + 1, device=DEV).expand(nb, F + 1).contiguous()
+    return srt, torch.searchsorted(b, f)
+
+
+def sort_kernel_rows(launches) -> dict:
+    """B13 at membench's 2^27 pairs (sub 512) and B12 at partition_bench's
+    2^26 (sub 512, F = 16; also compact_kp's sub 1024, F = 1): exact
+    agreement, time, plain time, bound and the library yardstick."""
+    gen = torch.Generator(device=DEV).manual_seed(1401)
+    rows = {}
+    for name, n in (("sort_blocks", SORT_N), ("sort_hist", HIST_N)):
+        key = torch.randint(0, 1 << 30, (n,), generator=gen, device=DEV,
+                            dtype=torch.int32)
+        pay = (torch.arange(n, dtype=torch.int32, device=DEV)
+               if name == "sort_hist" else
+               torch.randint(0, 1 << 30, (n,), generator=gen, device=DEV,
+                             dtype=torch.int32))
+        comp = blocksort.composite(key, pay)
+        if name == "sort_blocks":
+            def kernel():
+                return blocksort.sort_blocks(key, pay, 512)
+
+            def plain():
+                return blocksort.sort_blocks_plain(key, pay, 512)
+
+            def library():
+                return torch.sort(comp.view(-1, 512 * 128), dim=1)
+
+            lib_call = ("torch.sort of the int64 composite key << 32 | "
+                        "uint32(payload) along each 65,536-pair block")
+            out_bytes = 0
+        else:
+            scale = hist_scale(HIST_F)
+
+            def kernel():
+                return compact.sort_hist(key, pay, scale, HIST_SUB, HIST_F)
+
+            def plain():
+                return compact.sort_hist_plain(key, pay, scale, HIST_SUB,
+                                               HIST_F)
+
+            def library():
+                return b12_library(comp, scale, HIST_SUB, HIST_F)
+
+            lib_call = ("torch.sort of the int64 composite along each block "
+                        "+ the rows' buckets + torch.searchsorted")
+            out_bytes = n // (HIST_SUB * 128) * (HIST_F + 1) * 4
+        err = max_abs_err(kernel(), plain())
+        require(err == 0, f"{name} differs from its plain version at the "
+                "drivers' shape")
+        k_ms = cuda_ms(kernel, REPS)
+        p_ms = cuda_ms(plain, 1)
+        lib_ms = cuda_ms(library, REPS)
+        bound = (n * 16 + out_bytes) / HBM_BYTES_PER_S * 1e3
+        rows[name] = kernel_row(name, err, k_ms, p_ms, bound, lib_ms,
+                                lib_call)
+        rows[name]["launches"] = launches[name]
+        if name == "sort_blocks":     # how the time grows with the block
+            rows[name]["ms by sub"] = {sub: cuda_ms(
+                functools.partial(blocksort.sort_blocks, key, pay, sub),
+                REPS) for sub in (128, 256, 512, 1024)}
+            say(f"sort_blocks ms by sub: {rows[name]['ms by sub']}")
+        say(f"{name} ({n} pairs, sub 512): {k_ms:.3f} ms (plain "
+            f"{p_ms:.3f} ms, bound {bound:.3f} ms, {lib_call} {lib_ms:.3f} "
+            "ms)")
+        del key, pay, comp
+    # B12 at compact_kp's shape: sub 1024, F = 1, packed keys
+    key, pay, _ = compact_input(1402)
+    packed = ((key.long() << 1) | 1).int()
+    err = max_abs_err(compact.sort_hist(packed, pay, 0.0, 1024, 1),
+                      compact.sort_hist_plain(packed, pay, 0.0, 1024, 1))
+    require(err == 0, "sort_hist differs from its plain version at "
+            "compact_kp's shape")
+    k_ms = cuda_ms(lambda: compact.sort_hist(packed, pay, 0.0, 1024, 1), REPS)
+    bound = (COMPACT_ROWS * 16 + 512 * 8) / HBM_BYTES_PER_S * 1e3
+    rows["sort_hist"]["at compact_kp (sub 1024, F = 1)"] = {
+        "max_abs_err": err, "ms": k_ms, "bound_ms": bound}
+    say(f"sort_hist at compact_kp's shape (sub 1024, F = 1): {k_ms:.3f} ms "
+        f"(bound {bound:.3f} ms)")
+    return rows
+
+
+def sort_phase(relR, relS) -> dict:
+    """Phase 12: the partition-and-sort side at full width.  Returns the
+    rows of sort_hist (B12) and sort_blocks (B13)."""
+    check_sort_kernels()
+    say("sort kernels: sort_blocks and sort_hist (F = 1, 16, 127) equal "
+        "their plain versions at sub = 128, 512 and 1024 (random, all "
+        "equal, few runs, KEY_PAD_INT pads)")
+    mkey, pay, keep = compact_input(1501)
+    cap, short = compact_caps(keep)
+    torch.cuda.synchronize()
+    reset_launches()
+    pb_rows = partition_bench.main([])
+    mb_rows = membench.main([])
+    ck = compact.compact_kp(mkey, pay, cap)
+    ck_short = compact.compact_kp(mkey, pay, short)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    say(f"partition_bench / membench / compact_kp path launches: {launches}")
+    for name in ("sort_hist", "sort_blocks", "scatter_segments"):
+        require(launches[name] > 0, f"{name} was not launched on the "
+                "drivers' and compact_kp's path")
+    check_compact_kp(mkey, pay, keep, ck, ck_short)
+    say(f"compact_kp: {int(keep.sum())} of {COMPACT_ROWS} rows kept = the "
+        f"masked_select oracle's, overflow 0 at {cap} rows, "
+        f"{int(ck_short[2])} at {short}")
+    del ck, ck_short
+
+    zs = create_relation_zipf(NS, NR, 1.5, seed=22222, random_payload=True,
+                              device=DEV)
+    rk, rp, sk, sp = random_pairs(NR, NS, 1 << 22, 1502, unique_r=False)
+    dup = (Relation(key=rk, payload=rp), Relation(key=sk, payload=sp))
+    torch.cuda.synchronize()
+    reset_launches()
+    out = radix_main_path(relR, relS, zs, dup)
+    torch.cuda.synchronize()
+    eng_launches = read_launches()
+    say(f"radix / sort-merge path launches: {eng_launches}")
+    for name in ("K1", "K2", "K3", "K3M"):
+        require(eng_launches[name] > 0, f"{name} was not launched by "
+                "MWAY's range route")
+    check_radix_results(out, relR, relS, zs, dup)
+    _, _, ovf = sortmerge._mway_range_count(relR.key, relR.payload, zs.key,
+                                            zs.payload, True)
+    require(int(ovf) > 0, "MWAY's range route did not overflow at z=1.5")
+    say(f"radix / sort-merge: {', '.join(RADIX_NAMES)} keys-only and "
+        f"checksummed, RHT and MWAY materialized, RHO's radix frame and "
+        f"profile_phases = exact core; RHT on duplicate R = the general "
+        f"core; MWAY at z=1.5: the range route overflowed ({int(ovf)}), "
+        "the exact core answered")
+    del out
+    torch.cuda.synchronize()
+
+    calls = {}
+    for name in RADIX_NAMES:
+        calls[f"{name} keys-only"] = functools.partial(
+            run_join, relR, relS, name, JoinConfig(checksum=False))
+        calls[name] = functools.partial(run_join, relR, relS, name,
+                                        JoinConfig())
+    for name in ("RHT", "MWAY"):
+        calls[f"{name} materialize"] = functools.partial(
+            run_join, relR, relS, name, JoinConfig(materialize=True))
+    for label, cfg in RHO_FRAME:
+        calls[label] = functools.partial(run_join, relR, relS, "RHO", cfg)
+    calls["RHT duplicate R"] = functools.partial(run_join, *dup, "RHT",
+                                                 JoinConfig())
+    zs_rel = Relation(key=zs.key.clone(), payload=zs.payload)
+    calls["MWAY z=1.5 checksummed"] = functools.partial(
+        run_join, relR, zs_rel, "MWAY", JoinConfig())
+    calls["compact_kp (2^26 rows, 30% kept)"] = functools.partial(
+        compact.compact_kp, mkey, pay, cap)
+    res_ms = {k: cuda_ms(f, REPS) for k, f in calls.items()}
+    for name in ("MWAY", "PSM", "RHT"):
+        res_ms[f"{name} profile_phases (1 call)"] = cuda_ms(
+            functools.partial(run_join, relR, relS, name,
+                              JoinConfig(profile_phases=True)), 1)
+    for k, v in res_ms.items():
+        say(f"phase 12 {k}: {v:.3f} ms/call")
+    del zs, zs_rel, dup, mkey, pay, keep
+    torch.cuda.synchronize()
+
+    rows = sort_kernel_rows(launches)
+    print(json.dumps({"sort": {
+        "ms": res_ms, "launches": launches, "engine_launches": eng_launches,
+        "partition_bench": pb_rows, "membench": mb_rows}}), flush=True)
     return rows
 
 

@@ -48,7 +48,12 @@ def test_imports_without_jax():
             "aqp_tpu_torch.ops.kernels.rstats, "
             "aqp_tpu_torch.ops.scan, aqp_tpu_torch.ops.aggregate, "
             "aqp_tpu_torch.ops.hashing, aqp_tpu_torch.joins.nopart, "
-            "aqp_tpu_torch.joins.skewtier; print('ok')")
+            "aqp_tpu_torch.joins.skewtier, "
+            "aqp_tpu_torch.ops.kernels.blocksort, "
+            "aqp_tpu_torch.ops.partition, aqp_tpu_torch.ops.segops, "
+            "aqp_tpu_torch.joins.sortmerge, "
+            "aqp_tpu_torch.experiments.partition_bench, "
+            "aqp_tpu_torch.experiments.membench; print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -87,6 +92,11 @@ def test_entry_points_without_device_raise_when_no_cuda():
         lambda: run_join(r, r),
         lambda: run_join(r, r, "PHT"),
         lambda: run_join(r, r, "NPBC_st"),
+        lambda: run_join(r, r, "RHO_seq"),
+        lambda: run_join(r, r, "RHT"),
+        lambda: run_join(r, r, "RSM"),
+        lambda: run_join(r, r, "MWAY"),
+        lambda: run_join(r, r, "PSM"),
         lambda: finalize_join(r, r, None, None),
         lambda: engine.rho_join_count_fused(*cols),
         lambda: engine.rho_join_count_checked(*cols),
@@ -94,6 +104,7 @@ def test_entry_points_without_device_raise_when_no_cuda():
         lambda: engine.rho_join_materialize_fused(*cols),
         lambda: engine.rho_join_materialize(*cols, 128),
     ]
+    from aqp_tpu_torch.experiments import membench, partition_bench
     from aqp_tpu_torch.ops import aggregate, scan
     from aqp_tpu_torch.ops.kernels import aggpipe
     from aqp_tpu_torch.ops.kernels import scan as kscan
@@ -118,6 +129,8 @@ def test_entry_points_without_device_raise_when_no_cuda():
         lambda: aggregate.radix_sort_pairs(r.key, r.payload),
         lambda: aggpipe.groupby_aggregate_routed(r.key, r.payload, 8),
         lambda: aggpipe.groupby_aggregate_routed_auto(r.key, r.payload, 8),
+        lambda: partition_bench.main(["--small"]),
+        lambda: membench.main(["--small"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -125,8 +138,9 @@ def test_entry_points_without_device_raise_when_no_cuda():
 
 
 def test_kernel_wrappers_reject_other_devices():
-    from aqp_tpu_torch.ops.kernels import (aggpipe, compact, lanecompact,
-                                           nphj, rho3, rstats, scan)
+    from aqp_tpu_torch.ops.kernels import (aggpipe, blocksort, compact,
+                                           lanecompact, nphj, rho3, rstats,
+                                           scan)
 
     meta = torch.zeros(8, dtype=torch.int32, device="meta")
     rows = torch.zeros((4, 128), dtype=torch.int32, device="meta")
@@ -149,6 +163,8 @@ def test_kernel_wrappers_reject_other_devices():
         lambda: nphj.k3two_mat(slots, slots, meta[:4].view(2, 1, 2), slots,
                                slots, meta[:4].view(2, 1, 2), 1),
         lambda: rstats.r_cand_stats_kernel(meta, meta, meta[:4]),
+        lambda: blocksort.sort_blocks(meta, meta, 128),
+        lambda: compact.sort_hist(meta, meta, 0.0, 128, 1),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="unsupported device"):

@@ -9,8 +9,8 @@ import ctypes
 import pytest
 import torch
 
-from aqp_tpu_torch.ops.kernels import (aggpipe, build, compact, lanecompact,
-                                       nphj, rho3, rstats, scan)
+from aqp_tpu_torch.ops.kernels import (aggpipe, blocksort, build, compact,
+                                       lanecompact, nphj, rho3, rstats, scan)
 
 KINDS = {ctypes.c_void_p: (int, type(None)), ctypes.c_int: (int,),
          ctypes.c_longlong: (int,), ctypes.c_float: (float,)}
@@ -21,6 +21,7 @@ class FakeLib:
 
     def __init__(self):
         self.calls = []
+        self.args = []
 
     def __getattr__(self, name):
         argtypes, _ = build.SIGNATURES[name]
@@ -30,6 +31,7 @@ class FakeLib:
             for i, (a, t) in enumerate(zip(args, argtypes)):
                 assert isinstance(a, KINDS[t]), (name, i, type(a))
             self.calls.append(name)
+            self.args.append(args)
             if name == "rho3_k3_max_cap":
                 return 32768
             if name == "rho3_k3_smem":
@@ -45,7 +47,8 @@ class FakeLib:
 def lib(monkeypatch):
     fake = FakeLib()
     monkeypatch.setattr(build, "load", lambda: fake)
-    for mod in (rho3, compact, lanecompact, scan, aggpipe, nphj, rstats):
+    for mod in (rho3, compact, lanecompact, scan, aggpipe, nphj, rstats,
+                blocksort):
         monkeypatch.setattr(mod, "on_cuda", lambda x: True)
         monkeypatch.setattr(mod, "stream", lambda device: 0)
     return fake
@@ -59,7 +62,7 @@ def _counters():
     out = {}
     for c in (rho3.LAUNCHES, lanecompact.LAUNCHES, compact.LAUNCHES,
               scan.LAUNCHES, aggpipe.LAUNCHES, nphj.LAUNCHES,
-              rstats.LAUNCHES):
+              rstats.LAUNCHES, blocksort.LAUNCHES):
         out.update(c)
     return out
 
@@ -69,7 +72,7 @@ NO_LAUNCH = {"K1": 0, "K2": 0, "K3": 0, "K3M": 0, "compact_windows": 0,
              "compact_windows_dict": 0, "scatter_segments": 0,
              "scatter_segments_one": 0, "scan_count": 0, "scan_sum": 0,
              "scan_bitvector": 0, "K3AGG": 0, "K3TWO": 0, "K3TWO_MAT": 0,
-             "RSTATS": 0}
+             "RSTATS": 0, "sort_hist": 0, "sort_blocks": 0}
 
 
 def test_each_wrapper_calls_its_launcher_once(lib):
@@ -237,6 +240,75 @@ def test_new_wrappers_on_a_cuda_tensor_raise_without_the_kernels(
                                             cnt, 1),
                      lambda: rstats.r_cand_stats_kernel(_i32(8), _i32(8),
                                                         _i32(4))):
+            with pytest.raises(RuntimeError, match="nvcc not found"):
+                call()
+    finally:
+        build.load.cache_clear()
+    assert _counters() == before
+
+
+def test_sort_wrappers_call_their_launchers_once(lib):
+    """sort_blocks and sort_hist: outputs in the documented shapes, a 64-bit
+    work array only where a block exceeds one shared-memory tile."""
+    before = _counters()
+    for sub in (128, 512):
+        n = 2 * sub * 128
+        ok, op = blocksort.sort_blocks(_i32(n), _i32(n), sub)
+        assert ok.shape == op.shape == (n,) and ok.dtype == torch.int32
+        assert (lib.args[-1][4] is None) == (sub == 128)
+    ks, ps, starts = compact.sort_hist(_i32(3 * 1024 * 128),
+                                       _i32(3 * 1024 * 128), 0.25, 1024, 16)
+    assert ks.shape == ps.shape == (3 * 1024, 128)
+    assert starts.shape == (3, 17) and starts.dtype == torch.int32
+    assert lib.args[-1][4:6] == (16, 0.25) and lib.args[-1][6] is not None
+    assert [n for n in lib.calls if n.startswith("sort")] == [
+        "sort_blocks", "sort_blocks", "sort_hist"]
+    after = _counters()
+    assert {k: after[k] - before[k] for k in after} == dict(
+        NO_LAUNCH, sort_blocks=2, sort_hist=1)
+
+
+def test_sort_wrappers_reject_what_the_kernels_do_not_take(lib):
+    n = 128 * 128
+    with pytest.raises(ValueError, match="sub"):
+        blocksort.sort_blocks(_i32(n * 2), _i32(n * 2), 192)
+    with pytest.raises(ValueError, match="whole number"):
+        blocksort.sort_blocks(_i32(n + 128), _i32(n + 128), 128)
+    with pytest.raises(TypeError, match="int32"):
+        blocksort.sort_blocks(_i32(n).long(), _i32(n), 128)
+    with pytest.raises(ValueError, match="shape"):
+        blocksort.sort_blocks(_i32(n), _i32(2 * n), 128)
+    for F in (0, 128):
+        with pytest.raises(ValueError, match="F="):
+            compact.sort_hist(_i32(n), _i32(n), 0.0, 128, F)
+    assert not [c for c in lib.calls if c.startswith("sort")]
+
+
+def test_sort_wrappers_on_a_cuda_tensor_raise_without_the_kernels(
+        monkeypatch, tmp_path):
+    """Where no kernel can be built, sort_blocks and sort_hist raise on a
+    CUDA tensor; they never fall back to the plain versions."""
+    def nvcc_missing():
+        raise RuntimeError("nvcc not found")
+
+    def plain_called(*args, **kw):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(build, "find_nvcc", nvcc_missing)
+    build.load.cache_clear()
+    for mod in (blocksort, compact):
+        monkeypatch.setattr(mod, "on_cuda", lambda x: True)
+        monkeypatch.setattr(mod, "stream", lambda device: 0)
+    monkeypatch.setattr(blocksort, "sort_blocks_plain", plain_called)
+    monkeypatch.setattr(compact, "sort_hist_plain", plain_called)
+    monkeypatch.setattr(compact, "sort_blocks_plain", plain_called)
+    n = 128 * 128
+    before = _counters()
+    try:
+        for call in (lambda: blocksort.sort_blocks(_i32(n), _i32(n), 128),
+                     lambda: compact.sort_hist(_i32(n), _i32(n), 0.0, 128,
+                                               1)):
             with pytest.raises(RuntimeError, match="nvcc not found"):
                 call()
     finally:
