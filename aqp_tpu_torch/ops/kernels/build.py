@@ -10,6 +10,9 @@ The library is named after a hash of the sources and the flags, so a
 changed source builds anew and an unchanged one loads at once.  It is
 written under a temporary name and moved into place with `os.replace`, so
 an interrupted build leaves no half-written library and no lock file.
+Each compile runs with `-Xptxas -v`; what ptxas says of each source's
+kernels (registers, shared memory, spill stores and loads) is kept beside
+the library and read back by `ptxas_report`.
 
 The build happens at first use (`load()`), never at import.  The helpers
 at the end are what every kernel wrapper uses around a launch: the device
@@ -22,6 +25,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -39,6 +43,9 @@ BUILD_DIR = PKG_DIR / "_build"
 # No --use_fast_math: rho3's fine bucket depends on exact float32 rounding.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
+
+# ptxas's report of each kernel on the compile's stderr
+REPORT_FLAGS = ("-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -73,6 +80,8 @@ SIGNATURES = {
     "rstats": ([_P, _P, _LL, _P, _I, _P, _P, _P], _I),
     "sort_blocks": ([_P, _P, _LL, _I, _P, _P, _P, _P], _I),
     "sort_hist": ([_P, _P, _LL, _I, _I, _F, _P, _P, _P, _P, _P], _I),
+    "sort_tile_plan": ([_P, _P, _LL, _P, _P, _P, _P], _I),
+    "sort_kernel_launches": ([_P], None),
 }
 
 
@@ -103,14 +112,20 @@ def library_path(build_dir: Optional[Path] = None) -> Path:
     for p in sources():
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + REPORT_FLAGS).encode())
     name = f"libaqp_kernels_{h.hexdigest()[:16]}.so"
     return (build_dir or BUILD_DIR) / name
 
 
-def _run_all(cmds: list[list[str]]) -> None:
+def report_path(build_dir: Optional[Path] = None) -> Path:
+    """Where build() keeps the library's ptxas report (JSON: each source's
+    lines)."""
+    return library_path(build_dir).with_suffix(".ptxas.json")
+
+
+def _run_all(cmds: list[list[str]]) -> list[str]:
     """Run the commands side by side; raise with the first failure's
-    output."""
+    output.  Returns each command's stderr."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for c in cmds]
@@ -119,6 +134,7 @@ def _run_all(cmds: list[list[str]]) -> None:
         if p.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed ({p.returncode}): {' '.join(cmd)}\n{err}")
+    return [err for _, err in outs]
 
 
 def build(build_dir: Optional[Path] = None) -> tuple[Path, float]:
@@ -132,23 +148,50 @@ def build(build_dir: Optional[Path] = None) -> tuple[Path, float]:
     out.parent.mkdir(parents=True, exist_ok=True)
     tag = f"{out.stem}.{os.getpid()}"
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    report = report_path(build_dir)
+    tmp_report = report.with_name(f"{report.name}.{os.getpid()}.tmp")
     cu = [p for p in sources() if p.suffix == ".cu"]
     objs = [out.parent / f"{tag}.{p.stem}.o" for p in cu]
     t0 = time.perf_counter()
     try:
-        _run_all([[nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", str(src),
-                   "-o", str(obj)] for src, obj in zip(cu, objs)])
+        errs = _run_all([[nvcc, *NVCC_FLAGS, *REPORT_FLAGS, "-I",
+                          str(CSRC_DIR), "-c", str(src), "-o", str(obj)]
+                         for src, obj in zip(cu, objs)])
         _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
                    *map(str, objs)]])
+        tmp_report.write_text(json.dumps({
+            src.name: [ln.strip() for ln in err.splitlines()
+                       if "ptxas info" in ln or "spill" in ln]
+            for src, err in zip(cu, errs)}, indent=1))
+        os.replace(tmp_report, report)
         os.replace(tmp, out)
     finally:
         tmp.unlink(missing_ok=True)
+        tmp_report.unlink(missing_ok=True)
         for obj in objs:
             obj.unlink(missing_ok=True)
     secs = time.perf_counter() - t0
     print(f"[aqp_tpu_torch] built {out.name} from {len(cu)} sources in "
           f"{secs:.2f} s", file=sys.stderr, flush=True)
     return out, secs
+
+
+def ptxas_report(name: str, build_dir: Optional[Path] = None) -> list[str]:
+    """What `-Xptxas -v` said of each kernel of csrc/<name> when the
+    library in build_dir (default BUILD_DIR) was built: its registers,
+    shared memory and spill stores and loads."""
+    return json.loads(report_path(build_dir).read_text())[name]
+
+
+def spill_bytes(report: list[str]) -> int:
+    """Bytes of spill stores and loads over a ptxas_report."""
+    total = 0
+    for ln in report:
+        words = ln.replace(",", " ").split()
+        for i, w in enumerate(words[:-1]):
+            if w == "spill" and words[i + 1] in ("stores", "loads"):
+                total += int(words[i - 2])
+    return total
 
 
 @functools.cache

@@ -7,7 +7,8 @@ Phases, each printed on one line with its elapsed seconds:
      as nvidia-smi reports them;
   2. build: every kernel is compiled from aqp_tpu_torch/csrc, one nvcc
      process per source started together, then one link (no PyTorch
-     headers, no ninja, no network);
+     headers, no ninja, no network); each compile runs with -Xptxas -v,
+     and blocksort.cu's report is printed and must show no spill;
   3. kernels: K1, K2, K3 and K3M against their plain PyTorch versions on
      the card, at the default and at a small geometry (K3M also at the skew
      tier's residual geometry), keys-only and with payloads; the window
@@ -66,8 +67,13 @@ Phases, each printed on one line with its elapsed seconds:
      plain version, its bound and (RSTATS) a PyTorch composition.
  12. the partition-and-sort side at full width: the block sort (B13) and
      the block sort with bucket starts (B12, at F = 1, 16 and 127) against
-     their plain versions at sub = 128, 512 and 1024 (random keys, all keys
-     equal, a few runs of equal keys, a third KEY_PAD_INT); then the main
+     their plain versions at sub = 128, 256, 512 and 1024 (three blocks of
+     random keys, all keys equal, a few runs of equal keys, a third
+     KEY_PAD_INT; and at one block and at nine: equal keys with payloads
+     varying in one high digit, arange payloads, a block of KEY_PAD_INT with
+     equal payloads, keys varying in their top digit only, distinct keys,
+     every key twice and one repeated key a tile with payloads out of
+     order, keys 0..4 with random payloads); then the main
      path: the radix-partition microbenchmark (2^26 rows: histograms,
      partition passes, sort+hist, segment scatter), the memory benchmark
      (2^24 and 2^27 rows, its block sort at sub = 512) and compact_kp over
@@ -80,7 +86,10 @@ Phases, each printed on one line with its elapsed seconds:
      overflows, the fallback answers): equal to the exact cores, with K1,
      K2, K3 and K3M launched by MWAY's range route; each call timed, and
      B12 and B13 at the drivers' shapes beside their plain versions, their
-     bounds and one torch.sort of the same 64-bit composite.
+     bounds and one torch.sort of the same 64-bit composite, each by sub
+     with the kernels one call launches (counted by the launchers; they
+     must be the design's); and the tile sort's plan counts (tile_plan) at those
+     shapes and compact_kp's, equal to their plain version's.
 Each of phases 4, 7, 8, 9, 10, 11 and 12 sets the launch counts to 0 just
 before its main path and reads them just after.  The scale-up column needs 16 GiB
 of device memory (18 GiB with its bitvector).  Then one JSON line with the
@@ -432,10 +441,16 @@ def main() -> int:
     say(f"device: {kind}, torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
 
-    # 2. build
+    # 2. build, and the block sort's register report beside it
     _, secs = build.build()
     build.load()
     say(f"build: {secs:.2f} s of nvcc")
+    report = build.ptxas_report("blocksort.cu")
+    for line in report:
+        print(f"  {line}", flush=True)
+    spill = build.spill_bytes(report)
+    require(spill == 0, f"blocksort.cu spills {spill} bytes")
+    say("blocksort.cu: -Xptxas -v shows 0 bytes of spill stores and loads")
 
     # 3. kernels against their plain versions, moderate sizes
     # (the small geometry's slots only hold a small input)
@@ -1121,11 +1136,6 @@ def scan_phase() -> dict:
         rows[name] = kernel_row(name, err, k_ms, p_ms, bound, lib_ms,
                                 lib_call)
         rows[name]["launches"] = launches[name]
-        if name == "sort_blocks":     # how the time grows with the block
-            rows[name]["ms by sub"] = {sub: cuda_ms(
-                functools.partial(blocksort.sort_blocks, key, pay, sub),
-                REPS) for sub in (128, 256, 512, 1024)}
-            say(f"sort_blocks ms by sub: {rows[name]['ms by sub']}")
         fn = getattr(kscan, f"scan_{mode}_pallas")
         extra = tables if mode == "dict" else ()
         e_ms = cuda_ms(lambda: fn(col, *extra, 0, hi, n // 128,
@@ -1165,11 +1175,6 @@ def scan_phase() -> dict:
         rows[name] = kernel_row(name, err, k_ms, p_ms, bound, lib_ms,
                                 lib_call)
         rows[name]["launches"] = launches[name]
-        if name == "sort_blocks":     # how the time grows with the block
-            rows[name]["ms by sub"] = {sub: cuda_ms(
-                functools.partial(blocksort.sort_blocks, key, pay, sub),
-                REPS) for sub in (128, 256, 512, 1024)}
-            say(f"sort_blocks ms by sub: {rows[name]['ms by sub']}")
         say(f"{name} (2^30 rows): {k_ms:.3f} ms, {READ_ROWS / k_ms / 1e6:.1f}"
             f" GB/s (plain {p_ms:.3f} ms, bound {bound:.3f} ms"
             + (f", {lib_call.split(' (')[0]} {lib_ms:.3f} ms)" if lib_ms
@@ -1765,18 +1770,68 @@ def sort_cases(n: int, seed: int):
             ("few runs", i32(0, 5), pay), ("pads", pads, pay)]
 
 
-def check_sort_kernels() -> None:
-    """B13 and B12 equal their plain versions exactly, at sub = 128, 512
-    and 1024 (three blocks) and, for B12, F = 1, 16 and 127."""
-    for sub in (128, 512, 1024):
-        for label, key, pay in sort_cases(3 * sub * 128, 1300 + sub):
+def design_cases(n: int, sub: int, seed: int):
+    """(label, key, payload) on the card that the radix tile sort and its
+    digit plan could get wrong: digits constant over a tile, payloads that
+    ascend (their digits skipped), a block of pads, keys whose digits
+    alone give the order or do not, and keys from a handful of values."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+
+    def i32(lo, hi):
+        return torch.randint(lo, hi, (n,), generator=gen, device=DEV,
+                             dtype=torch.int64).int()
+
+    def full(x):
+        return torch.full((n,), x, dtype=torch.int32, device=DEV)
+
+    arange = torch.arange(n, dtype=torch.int32, device=DEV)
+    distinct = (torch.randperm(n, generator=gen, device=DEV) * 7
+                - (1 << 30)).int()
+    pads, pads_pay = i32(-(1 << 31), 1 << 31), i32(-(1 << 31), 1 << 31)
+    pads[:sub * 128] = blocksort.KEY_PAD_INT
+    pads_pay[:sub * 128] = 3
+    # one key repeated in each tile, its two payloads out of order
+    one, one_pay = distinct.clone(), i32(-(1 << 31), 1 << 31)
+    tile = torch.arange(0, n, blocksort.TILE, device=DEV)
+    one[tile + 5000] = one[tile + 100]
+    one_pay[tile + 100], one_pay[tile + 5000] = 9, 4
+    pairs = torch.repeat_interleave(distinct[:n // 2], 2)
+    pairs_pay = torch.tensor([1 << 20, 7], dtype=torch.int32,
+                             device=DEV).repeat(n // 2)
+    return [
+        ("equal keys, payloads varying in one high digit", full(7),
+         (i32(0, 256) << 24) | 0x5A5A5A),
+        ("arange payloads", i32(0, 1 << 30), arange),
+        ("a block of KEY_PAD_INT with equal payloads", pads, pads_pay),
+        ("keys varying in their top digit only",
+         (i32(0, 256) << 24) | 0x123456, full(5)),
+        ("distinct keys, random payloads", distinct,
+         i32(-(1 << 31), 1 << 31)),
+        ("one repeated key a tile, payloads out of order", one, one_pay),
+        ("every key twice, payloads out of order", pairs, pairs_pay),
+        ("keys 0..4, random payloads", i32(0, 5), i32(-(1 << 31), 1 << 31)),
+    ]
+
+
+def check_sort_kernels(seed: int = 0, blocks=(3, 1, 9),
+                       fs=(1, 16, 127)) -> None:
+    """B13 and B12 equal their plain versions exactly at every sub:
+    sort_cases at the first of `blocks` blocks, design_cases at each of
+    the others; B12 at each F of `fs`.  `seed` moves every case's seed."""
+    for sub in blocksort.SUBS:
+        cases = sort_cases(blocks[0] * sub * 128, seed + 1300 + sub)
+        for nb in blocks[1:]:
+            cases += design_cases(nb * sub * 128, sub,
+                                  seed + 1350 + 10 * sub + nb)
+        for label, key, pay in cases:
+            label = f"{label}, {key.numel() // (sub * 128)} blocks"
             got = blocksort.sort_blocks(key, pay, sub)
             want = blocksort.sort_blocks_plain(key, pay, sub)
             torch.cuda.synchronize()
             err = max_abs_err(got, want)
             require(err == 0, f"sort_blocks differs from its plain version "
                     f"by {err} (sub={sub}, {label})")
-            for F in (1, 16, 127):
+            for F in fs:
                 got = compact.sort_hist(key, pay, hist_scale(F), sub, F)
                 want = compact.sort_hist_plain(key, pay, hist_scale(F), sub,
                                                F)
@@ -1899,12 +1954,36 @@ def b12_library(comp, scale, sub, F):
     return srt, torch.searchsorted(b, f)
 
 
-def sort_kernel_rows(launches) -> dict:
+def kernels_per_call(call) -> dict:
+    """The kernels of csrc/blocksort.cu that one call launches, by name, as
+    the library's launchers count them."""
+    before = blocksort.kernel_launches()
+    call()
+    after = blocksort.kernel_launches()
+    return {k: after[k] - before[k] for k in after}
+
+
+def plan_counts(label, key, pay) -> dict:
+    """tile_plan's counts on (key, pay), equal to tile_plan_plain's."""
+    plan = blocksort.tile_plan(key, pay)
+    want = blocksort.tile_plan_plain(key, pay)
+    require(plan == want, f"tile_plan at {label}: the kernel counted "
+            f"{plan}, its plain version {want}")
+    say(f"tile plan at {label}: {plan}; "
+        f"{plan['key-first failed'] / plan['tiles']:.4%} of the tiles fail "
+        f"the key-first check")
+    return plan
+
+
+def sort_kernel_rows(launches):
     """B13 at membench's 2^27 pairs (sub 512) and B12 at partition_bench's
     2^26 (sub 512, F = 16; also compact_kp's sub 1024, F = 1): exact
-    agreement, time, plain time, bound and the library yardstick."""
+    agreement, time, plain time, bound and the library yardstick, and by
+    sub.  Returns (rows, what was measured beside them: the tile sort's
+    plan counts at each shape and the kernels one call launches by sub)."""
     gen = torch.Generator(device=DEV).manual_seed(1401)
     rows = {}
+    plans, per_call = {}, {}
     for name, n in (("sort_blocks", SORT_N), ("sort_hist", HIST_N)):
         key = torch.randint(0, 1 << 30, (n,), generator=gen, device=DEV,
                             dtype=torch.int32)
@@ -1952,11 +2031,27 @@ def sort_kernel_rows(launches) -> dict:
         rows[name] = kernel_row(name, err, k_ms, p_ms, bound, lib_ms,
                                 lib_call)
         rows[name]["launches"] = launches[name]
-        if name == "sort_blocks":     # how the time grows with the block
-            rows[name]["ms by sub"] = {sub: cuda_ms(
-                functools.partial(blocksort.sort_blocks, key, pay, sub),
-                REPS) for sub in (128, 256, 512, 1024)}
-            say(f"sort_blocks ms by sub: {rows[name]['ms by sub']}")
+        plans[name] = plan_counts(f"{name}'s shape", key, pay)
+        # how the time grows with the block: one trip through device
+        # memory per launch of the tile sort or a merge level
+        call = (functools.partial(blocksort.sort_blocks, key, pay)
+                if name == "sort_blocks" else
+                functools.partial(compact.sort_hist, key, pay, scale,
+                                  F=HIST_F))
+        by_sub = {sub: cuda_ms(functools.partial(call, sub=sub), REPS)
+                  for sub in blocksort.SUBS}
+        rows[name]["ms by sub"] = by_sub
+        per_call[name] = {sub: kernels_per_call(
+            functools.partial(call, sub=sub)) for sub in blocksort.SUBS}
+        for sub, got in per_call[name].items():
+            want = {"tile_sort_kernel": 1,
+                    "merge_kernel": blocksort.merge_levels(sub),
+                    "row_starts_kernel": int(name == "sort_hist")}
+            require(got == want, f"{name} at sub {sub} launched {got}, "
+                    f"not the design's {want}")
+        say(f"{name} by sub: ms {by_sub}; kernels launched by one call "
+            f"(counted by the launchers; each tile sort or merge level is "
+            f"one trip through device memory) {per_call[name]}")
         say(f"{name} ({n} pairs, sub 512): {k_ms:.3f} ms (plain "
             f"{p_ms:.3f} ms, bound {bound:.3f} ms, {lib_call} {lib_ms:.3f} "
             "ms)")
@@ -1964,6 +2059,8 @@ def sort_kernel_rows(launches) -> dict:
     # B12 at compact_kp's shape: sub 1024, F = 1, packed keys
     key, pay, _ = compact_input(1402)
     packed = ((key.long() << 1) | 1).int()
+    plans["sort_hist at compact_kp"] = plan_counts("compact_kp's shape",
+                                                   packed, pay)
     err = max_abs_err(compact.sort_hist(packed, pay, 0.0, 1024, 1),
                       compact.sort_hist_plain(packed, pay, 0.0, 1024, 1))
     require(err == 0, "sort_hist differs from its plain version at "
@@ -1974,7 +2071,7 @@ def sort_kernel_rows(launches) -> dict:
         "max_abs_err": err, "ms": k_ms, "bound_ms": bound}
     say(f"sort_hist at compact_kp's shape (sub 1024, F = 1): {k_ms:.3f} ms "
         f"(bound {bound:.3f} ms)")
-    return rows
+    return rows, {"tile plan": plans, "kernels per call by sub": per_call}
 
 
 def sort_phase(relR, relS) -> dict:
@@ -1982,8 +2079,10 @@ def sort_phase(relR, relS) -> dict:
     rows of sort_hist (B12) and sort_blocks (B13)."""
     check_sort_kernels()
     say("sort kernels: sort_blocks and sort_hist (F = 1, 16, 127) equal "
-        "their plain versions at sub = 128, 512 and 1024 (random, all "
-        "equal, few runs, KEY_PAD_INT pads)")
+        "their plain versions at sub = 128, 256, 512 and 1024 (random, all "
+        "equal, few runs, KEY_PAD_INT pads; at one block and nine: a high "
+        "payload digit, arange payloads, a pad block, a top key digit, "
+        "distinct keys, repeated keys out of payload order, keys 0..4)")
     mkey, pay, keep = compact_input(1501)
     cap, short = compact_caps(keep)
     torch.cuda.synchronize()
@@ -2057,10 +2156,11 @@ def sort_phase(relR, relS) -> dict:
     del zs, zs_rel, dup, mkey, pay, keep
     torch.cuda.synchronize()
 
-    rows = sort_kernel_rows(launches)
+    rows, beside = sort_kernel_rows(launches)
     print(json.dumps({"sort": {
         "ms": res_ms, "launches": launches, "engine_launches": eng_launches,
-        "partition_bench": pb_rows, "membench": mb_rows}}), flush=True)
+        "partition_bench": pb_rows, "membench": mb_rows, **beside}}),
+        flush=True)
     return rows
 
 

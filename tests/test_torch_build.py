@@ -4,6 +4,7 @@ raises and leaves nothing behind.  (The real build runs where nvcc is.)"""
 
 import json
 import os
+import re
 import stat
 import sys
 
@@ -23,6 +24,14 @@ if src.endswith(os.environ.get("FAKE_NVCC_FAIL", "-")):
 t0 = time.time()
 if kind == "compile":
     time.sleep(1.0)
+if "-Xptxas" in args:
+    name = os.path.basename(src)
+    sys.stderr.write(
+        "ptxas info    : Compiling entry function 'k' for 'sm_90a'\\n"
+        "ptxas info    : Function properties for k\\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\\n"
+        "ptxas info    : Used 32 registers (" + name + ")\\n"
+        "nvcc note     : not a ptxas line\\n")
 with open(os.environ["FAKE_NVCC_LOG"], "a") as f:
     f.write(f"{{kind}} {{t0}} {{time.time()}} {{' '.join(args)}}\\n")
 with open(out, "w") as f:
@@ -74,8 +83,10 @@ def test_each_source_compiles_in_parallel_then_one_link(fake_nvcc):
     objs = [a for a in link_args if a.endswith(".o")]
     assert len(objs) == len(sources)
     assert links[0][1] >= max(t1 for _, _, t1, _ in compiles)
-    # the objects and the temporary library are gone; the library stays
-    assert sorted(os.listdir(build.BUILD_DIR)) == [path.name]
+    # the objects and the temporary files are gone; the library and its
+    # ptxas report stay
+    assert sorted(os.listdir(build.BUILD_DIR)) == sorted(
+        [path.name, build.report_path().name])
     # built once: a second call compiles nothing
     assert build.build() == (path, 0.0)
     assert len(_entries(fake_nvcc)) == len(entries)
@@ -105,3 +116,43 @@ def test_time_build_times_both_forms_and_cleans_up(fake_nvcc, capsys):
     assert len(singles) == 2
     assert all(sum(x.endswith(".cu") for x in a) == n_cu for a in singles)
     assert not (build.BUILD_DIR / "timing").exists()
+
+
+def test_the_build_keeps_each_sources_ptxas_report(fake_nvcc):
+    """Every compile runs with -Xptxas -v; its ptxas lines are kept beside
+    the library, read back for one source, also once the library is
+    built."""
+    path, _ = build.build()
+    compiles = [a for kind, _, _, a in _entries(fake_nvcc)
+                if kind == "compile"]
+    assert compiles and all(a[a.index("-Xptxas") + 1] == "-v"
+                            for a in compiles)
+    want = ["ptxas info    : Compiling entry function 'k' for 'sm_90a'",
+            "ptxas info    : Function properties for k",
+            "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+            "ptxas info    : Used 32 registers (blocksort.cu)"]
+    assert build.ptxas_report("blocksort.cu") == want
+    assert build.ptxas_report("rho3.cu")[-1].endswith("(rho3.cu)")
+    assert build.build() == (path, 0.0)
+    assert build.ptxas_report("blocksort.cu") == want
+
+
+def test_spill_bytes_sums_what_ptxas_reports():
+    report = [
+        "ptxas info    : Compiling entry function '_Z4tileILb1EEvPKi' for "
+        "'sm_90a'",
+        "ptxas info    : Function properties for _Z4tileILb1EEvPKi",
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 64 registers, 164864 bytes smem",
+        "ptxas info    : Function properties for _Z5mergeILb0EEvPKy",
+        "24 bytes stack frame, 16 bytes spill stores, 8 bytes spill loads"]
+    assert build.spill_bytes(report[:4]) == 0
+    assert build.spill_bytes(report) == 24
+
+
+def test_every_signature_is_defined_by_a_source():
+    """Each function that load() declares is defined in some csrc/*.cu,
+    so a misnamed entry fails here, not when the card loads the library."""
+    text = "".join(p.read_text() for p in build.CSRC_DIR.glob("*.cu"))
+    for name in build.SIGNATURES:
+        assert re.search(rf"\b{name}\(", text), name

@@ -12,7 +12,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "aqp_tpu_torch"
-FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                     ROOT / "sort_check.py"]
 
 
 def _forbidden(name: str) -> bool:

@@ -72,7 +72,7 @@ NO_LAUNCH = {"K1": 0, "K2": 0, "K3": 0, "K3M": 0, "compact_windows": 0,
              "compact_windows_dict": 0, "scatter_segments": 0,
              "scatter_segments_one": 0, "scan_count": 0, "scan_sum": 0,
              "scan_bitvector": 0, "K3AGG": 0, "K3TWO": 0, "K3TWO_MAT": 0,
-             "RSTATS": 0, "sort_hist": 0, "sort_blocks": 0}
+             "RSTATS": 0, "sort_hist": 0, "sort_blocks": 0, "tile_plan": 0}
 
 
 def test_each_wrapper_calls_its_launcher_once(lib):
@@ -247,25 +247,79 @@ def test_new_wrappers_on_a_cuda_tensor_raise_without_the_kernels(
     assert _counters() == before
 
 
-def test_sort_wrappers_call_their_launchers_once(lib):
-    """sort_blocks and sort_hist: outputs in the documented shapes, a 64-bit
-    work array only where a block exceeds one shared-memory tile."""
+def test_sort_wrappers_call_their_launchers_once(lib, monkeypatch):
+    """sort_blocks and sort_hist: outputs in the documented shapes, one
+    launcher call each, and the 64-bit work array the kernels take: none
+    where a block is one tile (sub 128), n values for one merge level (sub
+    256), 2n for the levels that alternate between two halves (sub 512 and
+    1024)."""
+    work = []
+
+    def spy(n, sub, device):
+        w = real_scratch(n, sub, device)
+        work.append(w)
+        return w
+
+    real_scratch = blocksort.scratch
+    monkeypatch.setattr(blocksort, "scratch", spy)
     before = _counters()
-    for sub in (128, 512):
+    for sub, per_n in ((128, 0), (256, 1), (512, 2), (1024, 2)):
         n = 2 * sub * 128
-        ok, op = blocksort.sort_blocks(_i32(n), _i32(n), sub)
+        key, pay = _i32(n), _i32(n)
+        ok, op = blocksort.sort_blocks(key, pay, sub)
         assert ok.shape == op.shape == (n,) and ok.dtype == torch.int32
-        assert (lib.args[-1][4] is None) == (sub == 128)
-    ks, ps, starts = compact.sort_hist(_i32(3 * 1024 * 128),
-                                       _i32(3 * 1024 * 128), 0.25, 1024, 16)
+        assert blocksort.merge_levels(sub) == {128: 0, 256: 1, 512: 2,
+                                               1024: 3}[sub]
+        w = work[-1]
+        if per_n == 0:
+            assert w is None
+        else:
+            assert w.shape == (per_n * n,) and w.dtype == torch.int64
+        assert lib.args[-1][:7] == (key.data_ptr(), pay.data_ptr(), n, sub,
+                                    None if w is None else w.data_ptr(),
+                                    ok.data_ptr(), op.data_ptr())
+    n = 3 * 1024 * 128
+    key, pay = _i32(n), _i32(n)
+    ks, ps, starts = compact.sort_hist(key, pay, 0.25, 1024, 16)
     assert ks.shape == ps.shape == (3 * 1024, 128)
     assert starts.shape == (3, 17) and starts.dtype == torch.int32
-    assert lib.args[-1][4:6] == (16, 0.25) and lib.args[-1][6] is not None
+    assert work[-1].shape == (2 * n,)
+    assert lib.args[-1][:10] == (key.data_ptr(), pay.data_ptr(), n, 1024,
+                                 16, 0.25, work[-1].data_ptr(),
+                                 ks.data_ptr(), ps.data_ptr(),
+                                 starts.data_ptr())
+    assert len(work) == 5
     assert [n for n in lib.calls if n.startswith("sort")] == [
-        "sort_blocks", "sort_blocks", "sort_hist"]
+        "sort_blocks"] * 4 + ["sort_hist"]
     after = _counters()
     assert {k: after[k] - before[k] for k in after} == dict(
-        NO_LAUNCH, sort_blocks=2, sort_hist=1)
+        NO_LAUNCH, sort_blocks=4, sort_hist=1)
+
+
+def test_tile_plan_calls_its_launcher_once(lib):
+    """tile_plan hands the launcher the inputs, the sorted outputs and six
+    zeroed counters, and reads the counts back by name."""
+    n = 2 * blocksort.TILE
+    key, pay = _i32(n), _i32(n)
+    before = _counters()
+    plan = blocksort.tile_plan(key, pay)
+    assert plan == dict.fromkeys(blocksort.PLAN_COUNTS, 0)
+    assert lib.calls[-1] == "sort_tile_plan"
+    assert lib.args[-1][:3] == (key.data_ptr(), pay.data_ptr(), n)
+    after = _counters()
+    assert {k: after[k] - before[k] for k in after} == dict(NO_LAUNCH,
+                                                           tile_plan=1)
+    with pytest.raises(ValueError, match="whole number"):
+        blocksort.tile_plan(_i32(n + 128), _i32(n + 128))
+
+
+def test_kernel_launches_reads_the_launchers_counts(lib):
+    """kernel_launches asks the library once for its three counts and
+    names them; it launches nothing and counts no wrapper call."""
+    before = _counters()
+    assert blocksort.kernel_launches() == dict.fromkeys(blocksort.KERNELS, 0)
+    assert lib.calls == ["sort_kernel_launches"]
+    assert _counters() == before
 
 
 def test_sort_wrappers_reject_what_the_kernels_do_not_take(lib):
