@@ -59,6 +59,8 @@ SIGNATURES = {
     "rho3_k1": ([_P, _P, _LL, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P, _P], _I),
     "rho3_k2": ([_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P, _P],
                 _I),
+    "rho3_max_slot": ([_I], _I),
+    "rho3_max_group": ([], _I),
     "rho3_k3_smem": ([_I, _I], _LL),
     "rho3_k3_max_cap": ([], _I),
     "rho3_k3": ([_P, _P, _P, _I, _I, _I, _I, _P, _P, _P], _I),

@@ -32,8 +32,10 @@ ELEMENTS (rows*128), where the Pallas kernels count rows of a sorted block,
 so it is never smaller: wherever the reference reports overflow == 0 this
 pipeline does too, with the same slot contents, and it may succeed where
 the reference overflows.  Overflow counts the elements that did not fit.
-Which elements an overflowing slot keeps is unspecified (the kernel hands
-out positions with atomics), so its contents are never compared or used.
+Which elements an overflowing K1 slot keeps is unspecified (the kernel
+hands out positions with atomics); an overflowing K2 fine slot keeps the
+first cap2 values of its sorted window, in both versions.  An overflowing
+result is never used.
 """
 
 from __future__ import annotations
@@ -305,6 +307,13 @@ def _as_i32(u: torch.Tensor) -> torch.Tensor:
 # Wrappers: CPU tensor -> plain version, CUDA tensor -> kernel
 
 
+def _check_slot(lib, cap: int, k: int) -> None:
+    """Raise unless kernel K<k> (K1 or K2) takes slots of cap elements."""
+    most = lib.rho3_max_slot(k)
+    if cap > most:
+        raise ValueError(f"slots of {cap} exceed K{k}'s {most}")
+
+
 def k1(packed, pay, nb: int, prm: Rho3Params, scale: float):
     """K1: route packed keys into level-1 slots (see k1_plain)."""
     if not on_cuda(packed):
@@ -316,6 +325,7 @@ def k1(packed, pay, nb: int, prm: Rho3Params, scale: float):
     if n > nb * prm.block:
         raise ValueError(f"{n} keys do not fit {nb} blocks of {prm.block}")
     lib = build.load()
+    _check_slot(lib, prm.cap1, 1)
     out_k = torch.empty((nb, prm.f1, prm.cap1), dtype=torch.int32, device=dev)
     out_p = None if pay is None else torch.empty_like(out_k)
     cnt = torch.empty((nb, prm.f1), dtype=torch.int32, device=dev)
@@ -341,6 +351,10 @@ def k2(k1_keys, p1, cnt1, prm: Rho3Params, scale: float):
     need(p1, "p1", (nb, prm.f1, prm.cap1), dev)
     need(cnt1, "cnt1", (nb, prm.f1), dev)
     lib = build.load()
+    _check_slot(lib, prm.cap2, 2)
+    if prm.group > lib.rho3_max_group():
+        raise ValueError(f"windows of {prm.group} K1 slots exceed K2's "
+                         f"{lib.rho3_max_group()}")
     out_k = torch.empty((prm.f1, nbg, prm.f2, prm.cap2), dtype=torch.int32,
                         device=dev)
     out_p = None if p1 is None else torch.empty_like(out_k)

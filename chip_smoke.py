@@ -8,19 +8,26 @@ Phases, each printed on one line with its elapsed seconds:
   2. build: every kernel is compiled from aqp_tpu_torch/csrc, one nvcc
      process per source started together, then one link (no PyTorch
      headers, no ninja, no network); each compile runs with -Xptxas -v,
-     and blocksort.cu's report is printed and must show no spill;
+     and blocksort.cu's and rho3.cu's reports are printed and must show no
+     spill;
   3. kernels: K1, K2, K3 and K3M against their plain PyTorch versions on
-     the card, at the default and at a small geometry (K3M also at the skew
-     tier's residual geometry), keys-only and with payloads; the window
-     compactor (key + payload and keys-only) and the segment scatters at
-     w=512 with a cutting and a non-cutting keep fraction: exact equality;
+     the card, at the default, a small, the skew tier's residual and the
+     no-partition variants' geometries (f1 = 48; f2 = 32 with 4,096-value
+     fine slots; f2 = 8 with 16,384), keys-only and with payloads; K1 and
+     K2 alone on MWAY's range scale, the aggregate's duplicate group keys
+     with value payloads, all keys equal, a K2-only overflow (equal, the
+     fine slots' contents included) and a K1 overflow (K1's counts and
+     overflow; K2 exact on K1's output); the window compactor (key +
+     payload and keys-only) and the segment scatters at w=512 with a
+     cutting and a non-cutting keep fraction: exact equality;
   4. the slice at full width: run_join("RHO") keys-only and checksummed and
      engine.rho_join_count_fused on |R| = 13,107,200 dense PK keys and
      |S| = 52,428,800 tiled FK keys with seeded random payloads (bench.py's
      workload); matches must equal |S|, the checksum must equal the exact
      core's, and every kernel must have been launched; then ms per call;
   5. each kernel at the shapes of phase 4: time, plain version's time,
-     bound, and exact agreement;
+     bound, exact agreement, and for K1 and K2 a torch.sort composition
+     of the same routing (library time);
   6. the ladder: one key on a quarter of S is served by the heavy-split
      skew tier; 80 keys of 17,000 rows each overflow every salt and the skew
      tier, and must get the exact core's answer;
@@ -91,7 +98,8 @@ Phases, each printed on one line with its elapsed seconds:
      must be the design's); and the tile sort's plan counts (tile_plan) at those
      shapes and compact_kp's, equal to their plain version's.
 Each of phases 4, 7, 8, 9, 10, 11 and 12 sets the launch counts to 0 just
-before its main path and reads them just after.  The scale-up column needs 16 GiB
+before its main path and reads them just after; a kernel's launches in the
+kernels line are summed over those main paths.  The scale-up column needs 16 GiB
 of device memory (18 GiB with its bitvector).  Then one JSON line with the
 kernels' numbers, and last the result line {"ok": true, "device": {...}}.  Any failure exits
 non-zero; a watchdog ends a run that hangs.
@@ -259,6 +267,17 @@ INV = rho3._modinv_pow2(rho3.HASH_C)
 U32 = 0xFFFFFFFF
 
 
+MAIN_PATH = {}      # phase -> the launches of its main path
+
+
+def main_path_launches(phase: str) -> dict:
+    """The launches since the last reset_launches(), recorded as the main
+    path of `phase`."""
+    got = read_launches()
+    MAIN_PATH[phase] = got
+    return got
+
+
 def reset_launches() -> None:
     for counter in COUNTERS:
         for k in counter:
@@ -308,6 +327,128 @@ def check_kernels(rk, rp, sk, sp, prm, with_payload) -> None:
         err = max_abs_err(got, want)
         require(err == 0, f"K3M differs from its plain version by {err} "
                 f"({prm})")
+
+
+def check_routing(label, packed, pay, scale, k1_overflows, k2_overflows,
+                  prm=rho3.Rho3Params()) -> None:
+    """K1 and K2 against their plain versions on packed keys: exactly,
+    or where K1 overflows (its slots keep what its scatter placed first)
+    K1's counts and overflow, and K2 exactly on K1's output."""
+    nb = rho3.num_blocks(packed.numel(), prm)
+    got = rho3.k1(packed, pay, nb, prm, scale)
+    want = rho3.k1_plain(packed, pay, nb, prm, scale)
+    torch.cuda.synchronize()
+    what = f"{label}, payload={pay is not None}"
+    require((int(got[3]) > 0) == k1_overflows
+            and int(got[3]) == int(want[3]), f"K1 overflow {int(got[3])} "
+            f"(plain {int(want[3])}) at {what}")
+    err = max_abs_err(got[2:3] if k1_overflows else got, want[2:3]
+                      if k1_overflows else want)
+    require(err == 0, f"K1 differs from its plain version by {err} at {what}")
+    k2 = rho3.k2(*got[:3], prm, scale)
+    k2_want = rho3.k2_plain(*got[:3], prm, scale)
+    torch.cuda.synchronize()
+    require(k1_overflows or (int(k2[3]) > 0) == k2_overflows,
+            f"K2 overflow {int(k2[3])} at {what}")
+    err = max_abs_err(k2, k2_want)
+    require(err == 0, f"K2 differs from its plain version by {err} at {what}")
+
+
+def routing_cases(r, s) -> dict:
+    """K1 and K2's cases beyond the joins' geometries, at the default
+    geometry: {label: (packed, payloads, scale, K1 overflows, K2
+    overflows)}."""
+    prm = rho3.Rho3Params()
+    gen = torch.Generator(device=DEV).manual_seed(505)
+
+    def ints(n, lo, hi):
+        return torch.randint(lo, hi, (n,), generator=gen, device=DEV,
+                             dtype=torch.int64).int()
+
+    pad = torch.tensor(rho3.KEY_PAD_INT, dtype=torch.int32, device=DEV)
+    cases = {}
+    # MWAY's range route: salt 1 and the range scale
+    key = torch.cat([r.key, s.key])
+    tag = torch.cat([torch.zeros_like(r.key), torch.ones_like(s.key)])
+    packed, _ = rho3.pack_keys(key, tag, 1)
+    cases["MWAY's scale"] = (packed, torch.cat([r.payload, s.payload]),
+                             sortmerge.mway_scale(r.key, s.key), False, False)
+    # the aggregate's input: 2^16 group keys of 64 rows, in runs of 64 in a
+    # random order, 40% holes (dropped), value payloads, the range scale
+    n = 4 << 20
+    groups = torch.randperm(1 << 16, generator=gen, device=DEV)
+    gkey = groups.repeat_interleave(64).int()
+    gkey = torch.where(ints(n, 0, 10) < 4, aggpipe.MAX_KEY, gkey)
+    packed, _ = rho3.pack_keys(gkey, torch.zeros_like(gkey), 1)
+    cases["duplicate group keys"] = (packed, ints(n, -1000, 1000),
+                                     aggpipe._range_scale(gkey, prm), False,
+                                     False)
+    # all keys equal: one slot of a block, one fine slot
+    cases["all keys equal"] = (torch.full((4000,), 2 * 12345 + 1,
+                                          dtype=torch.int32, device=DEV),
+                               ints(4000, -(1 << 31), 1 << 31),
+                               rho3.default_scale(prm), False, False)
+    # a K2-only overflow: half the keys pads, 1,000 keys a block in fine
+    # bucket 0; no K1 slot overflows, fine slot 0 of each window does
+    n = prm.group * prm.block
+    width = (1 << 31) // prm.gmax
+    packed = torch.where(ints(n, 0, 2) == 0, pad, ints(n, 0, rho3.KEY_PAD_INT))
+    packed = torch.where(ints(n, 0, 131) == 0, ints(n, 0, width - 2), packed)
+    pay = ints(n, -(1 << 31), 1 << 31)
+    cases["a K2-only overflow"] = (packed, pay, rho3.default_scale(prm),
+                                   False, True)
+    # a K1 overflow: 10% of the keys in level-1 bucket 0
+    packed = torch.where(ints(n, 0, 10) == 0, ints(n, 0, width - 2),
+                         ints(n, 0, rho3.KEY_PAD_INT))
+    cases["a K1 overflow"] = (packed, pay, rho3.default_scale(prm), True,
+                              True)
+    return cases
+
+
+def k1_library(packed, pay, nb, prm, scale):
+    """K1's routing as PyTorch calls: one torch.sort of each block's
+    packed keys (the 64-bit key << 32 | payload composite with payloads;
+    pads past n), then each sorted key's level-1 bucket and one
+    torch.searchsorted for the slots' starts."""
+    v = packed.long()
+    if pay is not None:
+        v = (v << 32) | (pay.long() & U32)
+    pad_v = rho3.KEY_PAD_INT << (32 if pay is not None else 0)
+    full = torch.full((nb * prm.block,), pad_v, dtype=torch.int64,
+                      device=DEV)
+    full[:v.numel()] = v
+    srt = torch.sort(full.view(nb, prm.block), dim=1).values
+    key = (srt >> 32 if pay is not None else srt).int()
+    b = rho3._fine_bucket(key, scale, prm.gmax) // prm.f2
+    f = torch.arange(prm.f1 + 1, device=DEV).expand(nb, -1).contiguous()
+    return srt, torch.searchsorted(b.contiguous(), f)
+
+
+def k2_library(k1k, p1, prm, scale):
+    """K2's routing as PyTorch calls: one torch.sort of each window's
+    level-1 slots (pads included; the 64-bit composite with payloads), then
+    each sorted key's fine bucket and one torch.searchsorted for the fine
+    slots' starts."""
+    nb = k1k.shape[0]
+    nbg = nb // prm.group
+    v = k1k.long()
+    if p1 is not None:
+        v = (v << 32) | (p1.long() & U32)
+    win = v.view(nbg, prm.group, prm.f1, prm.cap1).permute(2, 0, 1, 3)
+    srt = torch.sort(win.reshape(prm.f1 * nbg, -1), dim=1).values
+    key = (srt >> 32 if p1 is not None else srt).int()
+    b = rho3._fine_bucket(key, scale, prm.gmax) % prm.f2
+    b = torch.where(key >= rho3.KEY_PAD_INT, prm.f2, b)
+    j = torch.arange(prm.f2 + 1, device=DEV).expand(b.shape[0], -1)
+    return srt, torch.searchsorted(b.contiguous(), j.contiguous())
+
+
+LIBRARY = {"K1": (k1_library, "torch.sort of each block's packed keys (the "
+                  "64-bit key << 32 | payload composite with payloads) + "
+                  "the level-1 buckets + torch.searchsorted"),
+           "K2": (k2_library, "torch.sort of each window's level-1 slots "
+                  "(the 64-bit composite with payloads) + the fine buckets "
+                  "+ torch.searchsorted")}
 
 
 def compaction_inputs(n, drop, seed):
@@ -445,17 +586,20 @@ def main() -> int:
     _, secs = build.build()
     build.load()
     say(f"build: {secs:.2f} s of nvcc")
-    report = build.ptxas_report("blocksort.cu")
-    for line in report:
-        print(f"  {line}", flush=True)
-    spill = build.spill_bytes(report)
-    require(spill == 0, f"blocksort.cu spills {spill} bytes")
-    say("blocksort.cu: -Xptxas -v shows 0 bytes of spill stores and loads")
+    for source in ("blocksort.cu", "rho3.cu"):
+        report = build.ptxas_report(source)
+        for line in report:
+            print(f"  {line}", flush=True)
+        spill = build.spill_bytes(report)
+        require(spill == 0, f"{source} spills {spill} bytes")
+        say(f"{source}: -Xptxas -v shows 0 bytes of spill stores and loads")
 
     # 3. kernels against their plain versions, moderate sizes
     # (the small geometry's slots only hold a small input)
     for prm, nr in ((rho3.Rho3Params(), 1 << 20), (SMALL_GEOM, 1 << 14),
-                    (skewtier._skew_prm(), 1 << 20)):
+                    (skewtier._skew_prm(), 1 << 20),
+                    *((nphj.VARIANT_PARAMS[v], 1 << 20)
+                      for v in ("PHT_no", "PHT_un", "PHT_o"))):
         r, s = seeded(nr, 4 * nr, seed=101)
         for with_payload in (False, True):
             check_kernels(r.key, r.payload, s.key, s.payload, prm,
@@ -469,14 +613,21 @@ def main() -> int:
               for n in (1 << 20, 4 << 20))
     for with_payload in (False, True):
         check_kernels(rk, rp, sk, sp, rho3.Rho3Params(), with_payload)
+    for label, (packed, pay, scale, k1_ovf, k2_ovf) in routing_cases(
+            r, s).items():
+        for with_payload in (False, True):
+            check_routing(label, packed, pay if with_payload else None,
+                          scale, k1_ovf, k2_ovf)
     # the compactor and the scatters at w=512: windows cut and not cut
     for drop, keep_frac, cut in ((0.5, None, False), (0.9, 0.1, False),
                                  (0.5, 0.1, True)):
         check_compaction((4 << 20) + 77, drop, keep_frac, 303, cut)
     say("kernels: K1, K2, K3, K3M, compact_windows, scatter_segments and "
-        "scatter_segments_one equal their plain versions (default, small "
-        "and residual geometry, unique and duplicate R keys, keys-only and "
-        "with payloads; windows cut and not cut)")
+        "scatter_segments_one equal their plain versions (default, small, "
+        "residual, PHT_no, PHT_un and PHT_o geometry, unique and duplicate "
+        "R keys, keys-only and with payloads; K1 and K2 on MWAY's scale, "
+        "duplicate group keys, equal keys, a K2-only and a K1 overflow; "
+        "windows cut and not cut)")
 
     # a small input against a plain dictionary-free numpy oracle
     rs, ss = seeded(4096, 16384, seed=7)
@@ -502,7 +653,7 @@ def main() -> int:
     fm, fc, fovf = engine.rho_join_count_fused(relR.key, relR.payload,
                                                relS.key, relS.payload)
     torch.cuda.synchronize()
-    launches = read_launches()
+    launches = main_path_launches("4 slice")
     say(f"main path launches: {launches}")
     require(all(launches[k] > 0 for k in ("K1", "K2", "K3")),
             f"a kernel was not launched on the main path: {launches}")
@@ -564,10 +715,17 @@ def main() -> int:
             k_ms = cuda_ms(lambda: KERNEL[name](*args), REPS)
             p_ms = cuda_ms(lambda: PLAIN[name](*args), 1)
             bound = kernel_bytes(name, args, out) / HBM_BYTES_PER_S * 1e3
-            row = kernel_row(name, err, k_ms, p_ms, bound)
+            lib_ms = lib_call = None
+            if name in LIBRARY:
+                lib, lib_call = LIBRARY[name]
+                lib_args = ((args[0], args[1], args[2], args[3], args[4])
+                            if name == "K1" else
+                            (args[0], args[1], args[3], args[4]))
+                lib_ms = cuda_ms(lambda: lib(*lib_args), REPS)
+            row = kernel_row(name, err, k_ms, p_ms, bound, lib_ms, lib_call)
             say(f"{name} {'payload' if with_payload else 'keys-only'}: "
                 f"{k_ms:.3f} ms (plain {p_ms:.3f} ms, bound {bound:.3f} "
-                "ms)")
+                f"ms, library {lib_ms} ms)")
             if with_payload:
                 row["launches"] = launches[name]
                 print(json.dumps({"with_payload": row}), flush=True)
@@ -637,7 +795,7 @@ def main() -> int:
     fused = engine.rho_join_materialize_fused(relR.key, relR.payload,
                                               relS.key, relS.payload)
     torch.cuda.synchronize()
-    mat_launches = read_launches()
+    mat_launches = main_path_launches("7 materialize")
     say(f"materialize path launches: {mat_launches}")
     require(mat_launches["K3M"] > 0, "K3M was not launched")
     exact = mergejoin.merge_join_materialize(relR.key, relR.payload,
@@ -707,7 +865,7 @@ def main() -> int:
             reset_launches()
             res, _ = run_join(relR, s, "RHO", cfg)
             torch.cuda.synchronize()
-            got = read_launches()
+            got = main_path_launches(f"8 z={z} {label}")
             for k, v in got.items():
                 skew_launches[k] += v
             want_c = 0 if label == "keys-only" else int(exact.checksum)
@@ -761,12 +919,8 @@ def main() -> int:
     say(f"skew path launches: {skew_launches}")
     rows.update(compaction_rows)
 
-    for name in ("K1", "K2", "K3"):
-        rows[name]["launches"] = launches[name]
-    rows["K3M"]["launches"] = mat_launches["K3M"]
     for name in ("compact_windows", "scatter_segments",
                  "scatter_segments_one"):
-        rows[name]["launches"] = skew_launches[name]
         require(skew_launches[name] > 0, f"{name} was not launched on the "
                 "skew path")
     torch.cuda.synchronize()
@@ -785,6 +939,14 @@ def main() -> int:
     torch.cuda.synchronize()
     say(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         " GiB")
+    # each kernel's launches over every phase's main path (K1 and K2 run in
+    # phases 4, 7, 8, 10, 11 and 12)
+    total = {k: sum(p[k] for p in MAIN_PATH.values()) for k in SOURCE}
+    print(json.dumps({"main_path_launches": MAIN_PATH, "total": total}),
+          flush=True)
+    for k in SOURCE:
+        require(total[k] > 0, f"{k} was launched on no main path")
+        rows[k]["launches"] = total[k]
     print(json.dumps({"kernels": [rows[k] for k in SOURCE]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -1061,7 +1223,7 @@ def scan_phase() -> dict:
                                   sel_bound(0.5), WRITE_ROWS["index"] // 128,
                                   sel_hint=0.1)
     torch.cuda.synchronize()
-    launches = read_launches()
+    launches = main_path_launches("9 scans")
     say(f"scan path launches: {launches}")
     require(int(low[-1]) > 0, "a hint below the selectivity did not report "
             "overflow")
@@ -1135,7 +1297,6 @@ def scan_phase() -> dict:
                     "dict": "torch.masked_select + two table gathers"}[mode]
         rows[name] = kernel_row(name, err, k_ms, p_ms, bound, lib_ms,
                                 lib_call)
-        rows[name]["launches"] = launches[name]
         fn = getattr(kscan, f"scan_{mode}_pallas")
         extra = tables if mode == "dict" else ()
         e_ms = cuda_ms(lambda: fn(col, *extra, 0, hi, n // 128,
@@ -1174,7 +1335,6 @@ def scan_phase() -> dict:
                         "which a 256-entry epilogue gives the result)")
         rows[name] = kernel_row(name, err, k_ms, p_ms, bound, lib_ms,
                                 lib_call)
-        rows[name]["launches"] = launches[name]
         say(f"{name} (2^30 rows): {k_ms:.3f} ms, {READ_ROWS / k_ms / 1e6:.1f}"
             f" GB/s (plain {p_ms:.3f} ms, bound {bound:.3f} ms"
             + (f", {lib_call.split(' (')[0]} {lib_ms:.3f} ms)" if lib_ms
@@ -1269,7 +1429,7 @@ def aggregate_phase(key, spay) -> dict:
     reset_launches()
     res = {g: leg(g) for g in (AGG_GROUPS, LOW_GROUPS)}
     torch.cuda.synchronize()
-    launches = read_launches()
+    launches = main_path_launches("10 aggregate")
     say(f"aggregate path launches: {launches}")
     for name in ("compact_windows", "scatter_segments", "scatter_segments_one",
                  "K1", "K2", "K3AGG"):
@@ -1349,7 +1509,6 @@ def aggregate_phase(key, spay) -> dict:
                + blocks[5].numel() * 4)
     bound = nbytes_ / HBM_BYTES_PER_S * 1e3
     row = kernel_row("K3AGG", err, k_ms, p_ms, bound)
-    row["launches"] = launches["K3AGG"]
     say(f"K3AGG ({groups} groups over {int(cnt2.long().sum())} routed rows, "
         f"nbg={nbg}): {k_ms:.3f} ms (plain {p_ms:.3f} ms, bound "
         f"{bound:.3f} ms from {nbytes_} bytes)")
@@ -1596,7 +1755,7 @@ def nopart_phase(relR, relS) -> dict:
     reset_launches()
     out, attempts = nopart_main_path(relR, relS, zs)
     torch.cuda.synchronize()
-    launches = read_launches()
+    launches = main_path_launches("11 no-partition")
     say(f"nopart path launches: {launches}")
     for name in ("K1", "K2", "K3TWO", "K3TWO_MAT", "RSTATS"):
         require(launches[name] > 0, f"{name} was not launched on the "
@@ -1684,7 +1843,6 @@ def nopart_phase(relR, relS) -> dict:
             bound = nbytes_ / HBM_BYTES_PER_S * 1e3
             rows["K3TWO_MAT"] = kernel_row("K3TWO_MAT", err, k_ms, p_ms,
                                            bound)
-            rows["K3TWO_MAT"]["launches"] = launches["K3TWO_MAT"]
             say(f"K3TWO_MAT ({n_out} rows per column): {k_ms:.3f} ms "
                 f"(plain {p_ms:.3f} ms, bound {bound:.3f} ms)")
         else:
@@ -1722,7 +1880,6 @@ def nopart_phase(relR, relS) -> dict:
                     + ("two torch.bincount" if with_pay
                        else "one torch.bincount"))
         row = kernel_row("RSTATS", err, k_ms, p_ms, bound, lib_ms, lib_call)
-        row["launches"] = launches["RSTATS"]
         say(f"RSTATS {'payload' if with_pay else 'keys-only'} (|R| = {NR}, "
             f"{int((hk >= 0).sum())} candidates): {k_ms:.3f} ms (plain "
             f"{p_ms:.3f} ms, bound {bound:.3f} ms, {lib_call} "
@@ -1975,7 +2132,7 @@ def plan_counts(label, key, pay) -> dict:
     return plan
 
 
-def sort_kernel_rows(launches):
+def sort_kernel_rows():
     """B13 at membench's 2^27 pairs (sub 512) and B12 at partition_bench's
     2^26 (sub 512, F = 16; also compact_kp's sub 1024, F = 1): exact
     agreement, time, plain time, bound and the library yardstick, and by
@@ -2030,7 +2187,6 @@ def sort_kernel_rows(launches):
         bound = (n * 16 + out_bytes) / HBM_BYTES_PER_S * 1e3
         rows[name] = kernel_row(name, err, k_ms, p_ms, bound, lib_ms,
                                 lib_call)
-        rows[name]["launches"] = launches[name]
         plans[name] = plan_counts(f"{name}'s shape", key, pay)
         # how the time grows with the block: one trip through device
         # memory per launch of the tile sort or a merge level
@@ -2092,7 +2248,7 @@ def sort_phase(relR, relS) -> dict:
     ck = compact.compact_kp(mkey, pay, cap)
     ck_short = compact.compact_kp(mkey, pay, short)
     torch.cuda.synchronize()
-    launches = read_launches()
+    launches = main_path_launches("12 drivers and compact_kp")
     say(f"partition_bench / membench / compact_kp path launches: {launches}")
     for name in ("sort_hist", "sort_blocks", "scatter_segments"):
         require(launches[name] > 0, f"{name} was not launched on the "
@@ -2111,7 +2267,7 @@ def sort_phase(relR, relS) -> dict:
     reset_launches()
     out = radix_main_path(relR, relS, zs, dup)
     torch.cuda.synchronize()
-    eng_launches = read_launches()
+    eng_launches = main_path_launches("12 radix and sort-merge")
     say(f"radix / sort-merge path launches: {eng_launches}")
     for name in ("K1", "K2", "K3", "K3M"):
         require(eng_launches[name] > 0, f"{name} was not launched by "
@@ -2156,7 +2312,7 @@ def sort_phase(relR, relS) -> dict:
     del zs, zs_rel, dup, mkey, pay, keep
     torch.cuda.synchronize()
 
-    rows, beside = sort_kernel_rows(launches)
+    rows, beside = sort_kernel_rows()
     print(json.dumps({"sort": {
         "ms": res_ms, "launches": launches, "engine_launches": eng_launches,
         "partition_bench": pb_rows, "membench": mb_rows, **beside}}),

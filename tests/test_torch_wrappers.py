@@ -34,6 +34,10 @@ class FakeLib:
             self.args.append(args)
             if name == "rho3_k3_max_cap":
                 return 32768
+            if name == "rho3_max_slot":
+                return 8192 if args[0] == 1 else 16384
+            if name == "rho3_max_group":
+                return 1024
             if name == "rho3_k3_smem":
                 return args[0] * 4 * (3 if args[1] else 2)
             if name == "rstats_max_h":
@@ -105,7 +109,8 @@ def test_each_wrapper_calls_its_launcher_once(lib):
     assert one.shape == (21, 128)
     assert [n for n in lib.calls if n.startswith(("rho3_k", "compact",
                                                   "scatter"))
-            and n not in ("rho3_k3_max_cap", "rho3_k3_smem")] == [
+            and n not in ("rho3_k3_max_cap", "rho3_k3_smem",
+                          "rho3_max_slot", "rho3_max_group")] == [
         "rho3_k1", "rho3_k2", "rho3_k3", "rho3_k1", "rho3_k2", "rho3_k3",
         "rho3_k3m", "compact_windows", "compact_windows",
         "scatter_segments", "scatter_segments"]
@@ -113,6 +118,42 @@ def test_each_wrapper_calls_its_launcher_once(lib):
     assert {k: after[k] - before[k] for k in after} == dict(
         NO_LAUNCH, K1=2, K2=2, K3=2, K3M=1, compact_windows=2,
         scatter_segments=1, scatter_segments_one=1)
+
+
+def test_k1_and_k2_pass_their_geometry_to_the_launchers(lib):
+    """K1 gets the block, fanouts, scale and slot capacity; K2 the window
+    (group K1 slots), the fine fanout and capacity; both at the skew
+    residual's cap2 of 16,384."""
+    prm = rho3.Rho3Params(kd_slot_rows=128)
+    nb = prm.group
+    k, p, cnt, _ = rho3.k1(_i32(5000), _i32(5000), nb, prm, 0.5)
+    rho3.k2(k, p, cnt, prm, 0.5)
+    (k1_args,), (k2_args,) = ([a for n, a in zip(lib.calls, lib.args)
+                               if n == f"rho3_k{i}"] for i in (1, 2))
+    assert k1_args[2:9] == (5000, nb, prm.block, prm.f1, prm.f2, 0.5,
+                            prm.cap1)
+    assert k2_args[3:10] == (prm.f1, prm.group, prm.cap1, prm.f2, 1, 0.5,
+                             prm.cap2)
+    assert prm.cap2 == 16384
+
+
+def test_k1_and_k2_reject_slots_and_windows_past_the_kernels(lib):
+    """Slots above rho3_max_slot(k) values (K1 8,192, K2 16,384), and
+    windows of more K1 slots than rho3_max_group(), raise before any
+    launch."""
+    big = rho3.Rho3Params(slot_rows=128, f1=2, kd_slot_rows=256)
+    with pytest.raises(ValueError, match="slots of 16384 exceed K1's 8192"):
+        rho3.k1(_i32(100), None, big.group, big, 1.0)
+    k = _i32(big.group, big.f1, big.cap1)
+    cnt = _i32(big.group, big.f1)
+    with pytest.raises(ValueError, match="slots of 32768 exceed K2's 16384"):
+        rho3.k2(k, None, cnt, big, 1.0)
+    wide = rho3.Rho3Params(block_rows=16384, slot_rows=8, f1=2)
+    assert wide.group == 2048
+    with pytest.raises(ValueError, match="2048 K1 slots exceed K2"):
+        rho3.k2(_i32(wide.group, wide.f1, wide.cap1), None,
+                _i32(wide.group, wide.f1), wide, 1.0)
+    assert not [n for n in lib.calls if n in ("rho3_k1", "rho3_k2")]
 
 
 def test_scan_and_aggregate_wrappers_call_their_launchers_once(lib):
