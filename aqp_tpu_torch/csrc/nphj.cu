@@ -14,11 +14,15 @@
 // region) into (f1, nbg_s, f2, cap2).  The TPU kernel merges both sides'
 // runs of a region in VMEM and propagates the last R over the combined
 // window; a region (up to 2 x 16 runs of 16,384 keys) does not fit the
-// 227 KB of shared memory a CTA has.  So these launch rho3's region join
-// (region_join.cuh) with the S slots as the probe runs and the table's as
-// the searched runs: one CTA per (region, S run), each table run of the
-// region staged in turn and binary-searched.  The table is read where it
-// lies, never copied next to S.
+// 227 KB of shared memory a CTA has.  So these launch the region joins of
+// region_join.cuh with the S slots as the probe runs and the table's as
+// the searched runs, the table read where it lies, never copied next to S:
+//   K3TWO      the sub-range join: one CTA per (region, key sub-range),
+//              which reads its sub-range of each table run once (the first
+//              copy of each R key, merged in run order in shared memory)
+//              and of each S run once (a binary search an S element).
+//   K3TWO_MAT  the materializing join: one CTA per (region, S run), each
+//              table run of the region staged in turn and binary-searched.
 //
 // Materialized layout (the reference's): three int32 columns of
 // f1 * f2 * w elements, w = 2 * max(nbg_r, nbg_s) * cap2; region (a, b) owns
@@ -33,11 +37,12 @@
 // Rho3Params: nbg_r = 4, nbg_s = 16, cap2 = 8,192; H100 HBM 3.35 TB/s),
 // each input byte read once and each output byte written once:
 //   K3TWO      the real slot elements, 262 MB keys-only (524 MB with
-//              payloads): >= 0.08 ms (0.16 ms).  Each table run is staged
-//              once per S run of its region (nbg_s = 16 times), which L2
-//              serves.
+//              payloads): >= 0.08 ms (0.16 ms).  It reads each of them once,
+//              plus 2 x (nbg_r + nbg_s) bound searches a CTA.
 //   K3TWO_MAT  524 MB read and three columns of 151M elements (1.81 GB)
-//              written: >= 0.70 ms; the holes are most of the writes.
+//              written: >= 0.70 ms; the holes are most of the writes.  Each
+//              table run is staged once per S run of its region (nbg_s =
+//              16 times), which L2 serves.
 
 #include <cuda_runtime.h>
 
@@ -46,16 +51,19 @@
 extern "C" {
 
 // K3TWO: table slots tk/tp/tcnt (nbg_r runs) probed by S slots sk/sp/scnt
-// (nbg_s runs), payloads on both sides or neither -> *matches, *checksum
-// (accumulated; the caller zeroes them).
+// (nbg_s runs), payloads on both sides or neither, with P key sub-ranges a
+// region -> *matches, *checksum; adds each halving of a sub-range to
+// *halvings (all accumulated; the caller zeroes matches and checksum).
 int nphj_k3two(const int* tk, const int* tp, const int* tcnt, int nbg_r,
                const int* sk, const int* sp, const int* scnt, int nbg_s,
-               int f1, int f2, int cap2, unsigned long long* matches,
-               unsigned int* checksum, void* stream) {
+               int f1, int f2, int cap2, int P, unsigned long long* matches,
+               unsigned int* checksum, unsigned long long* halvings,
+               void* stream) {
   const Runs table{tk, tp, tcnt, nbg_r};
   const Runs probe{sk, sp, scnt, nbg_s};
-  return (int)launch_region_join(probe, table, f1, f2, cap2, 0, false, Cols{},
-                                 matches, checksum, (cudaStream_t)stream);
+  return (int)launch_subrange_join<false>(probe, table, f1, f2, cap2, P,
+                                          matches, checksum, halvings,
+                                          (cudaStream_t)stream);
 }
 
 // K3TWO_MAT: as nphj_k3two with payloads, and ok/orp/osp[f1 * f2 * w] with
@@ -70,8 +78,9 @@ int nphj_k3two_mat(const int* tk, const int* tp, const int* tcnt, int nbg_r,
   const int chunks = 2 * (nbg_r > nbg_s ? nbg_r : nbg_s);
   const long long w = (long long)chunks * cap2;
   const Cols out{ok, orp, osp, f2 * w, w, cap2, chunks - nbg_s};
-  return (int)launch_region_join(probe, table, f1, f2, cap2, inv, true, out,
-                                 matches, checksum, (cudaStream_t)stream);
+  return (int)launch_region_join_mat(probe, table, f1, f2, cap2, inv, out,
+                                     matches, checksum,
+                                     (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -80,12 +80,17 @@
 //              at a time into the first cap2 values, the incoming sub-run
 //              read from device memory, so it keeps exactly the plain
 //              version's values.
-//   K3  = region_join_kernel (region_join.cuh, shared with nphj.cu's
-//         K3TWO): one CTA per (region, probe run).  The probe run is staged
-//         in shared memory; every run of the region is staged in turn and
-//         each unmatched S element binary-searches it for its R partner
-//         (packed key - 1).  K3 probes and searches the same array.
-//   K3M = the same kernel with its output columns.
+//   K3  = subrange_join_kernel (region_join.cuh, shared with nphj.cu's
+//         K3TWO): one CTA per (region, key sub-range), P sub-ranges a
+//         region cut at even packed keys.  The CTA reads its sub-range of
+//         every run (R and S interleaved), keeps the first copy of each R
+//         key a run, merges the runs' R in run order in shared memory, then
+//         reads the sub-range again and each S element binary-searches the
+//         merged R for its partner (packed key - 1).
+//   K3M = region_join_mat_kernel (region_join.cuh, shared with K3TWO_MAT):
+//         one CTA per (region, probe run); every run of the region is
+//         staged in turn and each unmatched S element binary-searches it;
+//         it writes its output columns.
 //
 // Numerics.  Build without --use_fast_math.  fine_bucket() must reproduce
 // the float32 rounding of rho3._fine_bucket bit for bit: int -> float
@@ -116,12 +121,14 @@
 //       searches' few sectors a sub-run.  Shared memory: 35 KB a CTA
 //       (70 KB with payloads; 139 KB at cap2 = 16,384 with payloads).
 //   K3  reads the 262 MB of real fine-slot elements: >= 0.08 ms keys-only.
-//       Each run is staged once per probe run of its region (nbg times),
-//       which L2 serves; the binary searches run in shared memory.
+//       Each CTA reads its sub-range of each run twice (R pass, then S
+//       pass, the second from L2) plus 2 x nbg bound searches; the merge
+//       and the binary searches run in shared memory.
 //   K3M reads the real fine-slot elements with payloads (524 MB) and writes
 //       three columns of the fine-slot array's length (3 x 302 MB): >=
-//       0.43 ms.  It reads as K3 does; each output position is written once,
-//       the holes included, so no pre-fill pass is needed.
+//       0.43 ms.  Each run is staged once per probe run of its region (nbg
+//       times), which L2 serves; each output position is written once, the
+//       holes included, so no pre-fill pass is needed.
 // PERF.md has the measured times.
 
 #include <cuda_runtime.h>
@@ -133,7 +140,6 @@ namespace {
 typedef unsigned long long u64;
 
 constexpr int KEY_PAD_INT = 2147483647;
-constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_F = 128;            // f1 and f2 stay below it
 
 // K1's scatter: a CTA's chunk of keys
@@ -212,15 +218,6 @@ __device__ __forceinline__ void store_val(int* __restrict__ k,
   } else {
     k[i] = (int)v;
   }
-}
-
-__device__ __forceinline__ unsigned warp_incl_scan(unsigned x, int lane) {
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const unsigned y = __shfl_up_sync(FULL, x, o);
-    if (lane >= o) x += y;
-  }
-  return x;
 }
 
 template <typename T>
@@ -651,38 +648,6 @@ __device__ __forceinline__ int first_at_least(const int* __restrict__ keys,
   return lo;
 }
 
-// The number of a's values among the first k outputs of merge(a[0, na),
-// b[0, nb)), a's value first on ties.
-template <class FA, class FB>
-__device__ __forceinline__ int co_rank(FA a, int na, FB b, int nb, int k) {
-  int lo = max(0, k - nb), hi = min(k, na);
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (a(mid) <= b(k - 1 - mid))
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  return lo;
-}
-
-// Shared-memory slot of value x: one pad word every 16 keeps a thread's
-// consecutive values and 16 consecutive threads' values on distinct banks.
-__device__ __forceinline__ int pad_at(int x) { return x + (x >> 4); }
-
-// The last sub-run bi in [0, G) with off[bi] <= x (off[0] = 0 <= x).
-__device__ __forceinline__ int run_of(const int* off, int G, int x) {
-  int lo = 0, hi = G;      // the answer lies in [lo, hi)
-  while (hi - lo > 1) {
-    const int mid = (lo + hi) >> 1;
-    if (off[mid] <= x)
-      lo = mid;
-    else
-      hi = mid;
-  }
-  return lo;
-}
-
 // The outputs a thread merges, until the CTA's barrier lets it write them:
 // keys-only the values; with payloads each value's place, two 16-bit places
 // a register (IT 64-bit values would take 2 * IT registers through the
@@ -1050,22 +1015,23 @@ int rho3_k2(const int* k1, const int* p1, const int* cnt1, int f1, int group,
                                      ovf, st));
 }
 
-// Shared memory K3 needs for a fine-slot capacity of cap2.
-long long rho3_k3_smem(int cap2, int with_payload) {
-  return region_join_smem(cap2, with_payload != 0);
-}
+// Shared memory K3M needs for a fine-slot capacity of cap2.
+long long rho3_k3m_smem(int cap2) { return region_join_mat_smem(cap2); }
 
-// Largest fine-slot capacity K3's per-thread match mask covers.
-int rho3_k3_max_cap() { return RJ_THREADS * RJ_MAX_PER_THREAD; }
+// Largest fine-slot capacity K3 and K3M take (K3M's per-thread match mask).
+int rho3_k3_max_cap() { return RJ_MAX_CAP; }
 
-// K3: K2's fine slots -> *matches, *checksum (both accumulated; the caller
-// zeroes them).
+// K3: K2's fine slots -> *matches, *checksum, with P key sub-ranges a
+// region; adds each halving of a sub-range to *halvings (all accumulated;
+// the caller zeroes matches and checksum).
 int rho3_k3(const int* k2, const int* p2, const int* cnt2, int f1, int nbg,
-            int f2, int cap2, unsigned long long* matches,
-            unsigned int* checksum, void* stream) {
+            int f2, int cap2, int P, unsigned long long* matches,
+            unsigned int* checksum, unsigned long long* halvings,
+            void* stream) {
   const Runs runs{k2, p2, cnt2, nbg};
-  return (int)launch_region_join(runs, runs, f1, f2, cap2, 0, false, Cols{},
-                                 matches, checksum, (cudaStream_t)stream);
+  return (int)launch_subrange_join<true>(runs, runs, f1, f2, cap2, P,
+                                         matches, checksum, halvings,
+                                         (cudaStream_t)stream);
 }
 
 // K3M: K2's fine slots with payloads -> ok/orp/osp[f1][nbg][f2][cap2] (every
@@ -1079,8 +1045,9 @@ int rho3_k3m(const int* k2, const int* p2, const int* cnt2, int f1, int nbg,
   // output position of slot (a, j, b) = its position in K2's layout
   const Cols out{ok, orp, osp, (long long)nbg * f2 * cap2, cap2,
                  (long long)f2 * cap2, 0};
-  return (int)launch_region_join(runs, runs, f1, f2, cap2, inv, true, out,
-                                 matches, checksum, (cudaStream_t)stream);
+  return (int)launch_region_join_mat(runs, runs, f1, f2, cap2, inv, out,
+                                     matches, checksum,
+                                     (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -218,6 +218,8 @@ def _sample_stats(s_key: torch.Tensor):
     n_sample estimates the heavy fraction (the top-H runs of at least
     MIN_SAMPLE_RUN)."""
     _, length = _sample_runs(s_key, SAMPLE_STRIDE)
+    if length.numel() == 0:   # an empty S: no run, so no hint and cap 0
+        return 0, 0, 0
     top = torch.topk(length, min(H, length.numel())).values
     mass = torch.where(top >= MIN_SAMPLE_RUN, top, 0).sum()
     mx, mass = torch.stack([length.max(), mass]).tolist()

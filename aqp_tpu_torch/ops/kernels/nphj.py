@@ -51,8 +51,9 @@ from aqp_tpu_torch.ops.kernels.build import need, on_cuda, ptr, stream
 from aqp_tpu_torch.ops.kernels.rho3 import (HASH_C, HASH_MASK, Rho3Params,
                                             _as_i32, _modinv_pow2,
                                             _region_join, check_region_cap,
-                                            k3_plain, pack_keys,
-                                            route_2level)
+                                            halving_counter, k3_plain,
+                                            pack_keys, route_2level,
+                                            subranges)
 
 VARIANT_PARAMS = {
     "PHT": Rho3Params(),
@@ -178,12 +179,14 @@ def k3two(tk2, tp2, tcnt, sk2, sp2, scnt):
     f1, nbg_r, nbg_s, f2, cap2 = _check_slots(tk2, tp2, tcnt, sk2, sp2,
                                               scnt, dev)
     lib = build.load()
-    check_region_cap(lib, cap2, tp2 is not None, "K3TWO")
+    check_region_cap(lib, cap2, "K3TWO", materialize=False)
     matches = torch.zeros((), dtype=torch.int64, device=dev)
     checksum = torch.zeros((), dtype=torch.int32, device=dev)
     err = lib.nphj_k3two(ptr(tk2), ptr(tp2), ptr(tcnt), nbg_r, ptr(sk2),
                          ptr(sp2), ptr(scnt), nbg_s, f1, f2, cap2,
-                         ptr(matches), ptr(checksum), stream(dev))
+                         subranges(nbg_r + nbg_s, cap2), ptr(matches),
+                         ptr(checksum), ptr(halving_counter(dev)),
+                         stream(dev))
     build.check(lib, err, "nphj K3TWO")
     LAUNCHES["K3TWO"] += 1
     return matches, checksum.long() & _U32
@@ -199,7 +202,7 @@ def k3two_mat(tk2, tp2, tcnt, sk2, sp2, scnt, inv: int):
     f1, nbg_r, nbg_s, f2, cap2 = _check_slots(tk2, tp2, tcnt, sk2, sp2,
                                               scnt, dev)
     lib = build.load()
-    check_region_cap(lib, cap2, True, "K3TWO_MAT")
+    check_region_cap(lib, cap2, "K3TWO_MAT", materialize=True)
     n = f1 * f2 * mat_chunk(nbg_r, nbg_s, cap2)
     ok = torch.empty((n,), dtype=torch.int32, device=dev)
     orp = torch.empty_like(ok)

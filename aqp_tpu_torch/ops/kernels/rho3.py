@@ -371,14 +371,41 @@ def k2(k1_keys, p1, cnt1, prm: Rho3Params, scale: float):
 
 _SMEM_LIMIT = 232448  # bytes of shared memory one CTA can have on sm_90
 
+# Fine-slot elements (of every run a region's CTAs read) one CTA of K3's or
+# K3TWO's sub-range join covers: the P of a region is its runs' capacity
+# over this.  At the headline K3 takes P = 8 sub-ranges (~2,850 R keys a
+# CTA) and K3TWO P = 10 (~2,280); fewer, larger CTAs were faster there.
+SUBRANGE_ELEMS = 16384
 
-def check_region_cap(lib, cap2: int, with_payload: bool, what: str) -> None:
-    """Raise unless the region join (csrc/region_join.cuh, behind K3, K3M,
-    K3TWO and K3TWO_MAT) takes fine slots of cap2 elements."""
+# device -> the count of sub-ranges the region join halved (its R did not
+# fit one CTA), accumulated over every K3 and K3TWO launch on the device
+_HALVINGS: dict = {}
+
+
+def subranges(runs: int, cap2: int) -> int:
+    """Key sub-ranges (CTAs) a region of `runs` fine slots of cap2 takes."""
+    return max(1, -(-runs * cap2 // SUBRANGE_ELEMS))
+
+
+def halving_counter(device) -> torch.Tensor:
+    """The 0-dim int64 count of halved sub-ranges that K3 and K3TWO add to
+    on `device`; zero it to start a count."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in _HALVINGS:
+        _HALVINGS[device] = torch.zeros((), dtype=torch.int64, device=device)
+    return _HALVINGS[device]
+
+
+def check_region_cap(lib, cap2: int, what: str, materialize: bool) -> None:
+    """Raise unless the region joins (csrc/region_join.cuh) take fine slots
+    of cap2 elements: K3 and K3TWO up to rho3_k3_max_cap(), K3M and
+    K3TWO_MAT (materialize) also within a CTA's shared memory."""
     if cap2 > lib.rho3_k3_max_cap():
         raise ValueError(f"fine slots of {cap2} exceed {what}'s "
                          f"{lib.rho3_k3_max_cap()}")
-    if lib.rho3_k3_smem(cap2, with_payload) > _SMEM_LIMIT:
+    if materialize and lib.rho3_k3m_smem(cap2) > _SMEM_LIMIT:
         raise ValueError(f"fine slots of {cap2} need more shared memory "
                          "than a CTA has")
 
@@ -393,11 +420,12 @@ def k3(k2_keys, p2, cnt2):
     need(p2, "p2", (f1, nbg, f2, cap2), dev)
     need(cnt2, "cnt2", (f1, nbg, f2), dev)
     lib = build.load()
-    check_region_cap(lib, cap2, p2 is not None, "K3")
+    check_region_cap(lib, cap2, "K3", materialize=False)
     matches = torch.zeros((), dtype=torch.int64, device=dev)
     checksum = torch.zeros((), dtype=torch.int32, device=dev)
     err = lib.rho3_k3(ptr(k2_keys), ptr(p2), ptr(cnt2), f1, nbg, f2, cap2,
-                      ptr(matches), ptr(checksum), stream(dev))
+                      subranges(nbg, cap2), ptr(matches), ptr(checksum),
+                      ptr(halving_counter(dev)), stream(dev))
     build.check(lib, err, "rho3 K3")
     LAUNCHES["K3"] += 1
     return matches, checksum.long() & _U32
@@ -415,7 +443,7 @@ def k3m(k2_keys, p2, cnt2, inv: int):
     need(p2, "p2", (f1, nbg, f2, cap2), dev)
     need(cnt2, "cnt2", (f1, nbg, f2), dev)
     lib = build.load()
-    check_region_cap(lib, cap2, True, "K3M")
+    check_region_cap(lib, cap2, "K3M", materialize=True)
     n = k2_keys.numel()
     ok = torch.empty((n,), dtype=torch.int32, device=dev)
     orp = torch.empty_like(ok)

@@ -368,3 +368,26 @@ def test_empty_build_side_gives_zero_results(fields):
         if fields.get("materialize"):
             assert _live(res) == []
             assert not res.r_payload.any() and not res.s_payload.any()
+
+
+EMPTY_PROBE_FIELDS = [{}, {"checksum": False}, {"materialize": True},
+                      {"profile_phases": True}]
+
+
+@pytest.mark.parametrize("fields", EMPTY_PROBE_FIELDS,
+                         ids=["sum", "keys", "materialize", "profile"])
+def test_empty_probe_side_matches_reference(fields):
+    """|S| = 0 (the skew plan's sample is empty): matches and checksum 0,
+    as the reference answers; materialized columns hold holes only."""
+    rk = np.arange(5000, dtype=np.int32)
+    sk = np.zeros(0, np.int32)
+    jres, _ = jrun(JRelation(jnp.asarray(rk), jnp.asarray(rk * 3)),
+                   JRelation(jnp.asarray(sk), jnp.asarray(sk)), "RHO",
+                   JConfig(**fields))
+    tres, tt = trun(TRelation.from_numpy(rk, rk * 3, device="cpu"),
+                    TRelation.from_numpy(sk, sk, device="cpu"), "RHO",
+                    TConfig(**fields), device="cpu")
+    assert _pair(tres) == _pair(jres) == (0, 0)
+    assert tt.matches == 0 and tres.overflow is None
+    if fields.get("materialize"):
+        assert _live(tres) == _live(jres) == []

@@ -210,3 +210,20 @@ def test_int64_keys_raise(name):
     r = TRelation(k, k)
     with pytest.raises(TypeError, match="int32"):
         trun(r, r, name, device="cpu")
+
+
+@pytest.mark.parametrize("name", PIPELINED)
+@pytest.mark.parametrize("checksum", [True, False], ids=["sum", "keys"])
+def test_empty_probe_side_matches_reference(checksum, name):
+    """|S| = 0: matches and checksum 0, as the reference answers."""
+    rk = np.arange(5000, dtype=np.int32)
+    sk = np.zeros(0, np.int32)
+    jres, _ = jrun(JRelation(jnp.asarray(rk), jnp.asarray(rk * 3)),
+                   JRelation(jnp.asarray(sk), jnp.asarray(sk)), name,
+                   JConfig(checksum=checksum))
+    tres, tt = trun(TRelation.from_numpy(rk, rk * 3, device="cpu"),
+                    TRelation.from_numpy(sk, sk, device="cpu"), name,
+                    TConfig(checksum=checksum), device="cpu")
+    assert int(tres.matches) == int(jres.matches) == 0
+    assert int(tres.checksum) == int(jres.checksum) == 0
+    assert tt.matches == 0 and tres.overflow is None

@@ -1,0 +1,460 @@
+"""A CPU model of the sub-range region join behind K3 and K3TWO
+(csrc/region_join.cuh, subrange_join_kernel), step for step, held exactly
+against the port's plain versions (rho3.k3_plain, nphj.k3two_plain).
+
+The model follows the kernel's arithmetic for each CTA, one (region, key
+sub-range p) of P:
+  interval   the region's smallest and largest key, from the first and last
+             real element of each run (table and probe);
+  bounds     the interval cut into P equal widths at even packed keys (the
+             first sub-range starts at the smallest key rounded down to
+             even, the last ends past the largest), so S key k and its
+             partner k - 1 fall on the same side;
+  pieces     each run's positions of the piece [A, B) by lower_bound of A
+             and of B over its real elements (A at or below the smallest
+             key is position 0, B past the largest the run's count);
+  R pass     each table run's positions in run order; an even key is kept
+             when it differs from its predecessor in the run (the first,
+             lowest-payload copy); past `rcap` kept keys the piece is cut in
+             two at an even key, the left half done first and the right one
+             stacked (a halving);
+  merge      the runs that kept something, merged pairwise level by level,
+             ties to the left (lower) run;
+  directory  the piece's key span cut into at most `ndir` buckets of
+             2^sh keys; dir[t] is the first merged key at or past bucket
+             t's start;
+  S pass     each odd key of each probe run's piece: lower_bound of key - 1
+             among its bucket's merged keys; a hit counts, and with
+             payloads adds the answering R payload and its own, mod 2^32.
+K3 is the model with the union's runs as table and probe; K3TWO with the
+table's runs and S's.  The kernel's rcap is 4,096 R keys (SR_RCAP) and its
+ndir 4,096 buckets (SR_DIR); the tests also run them scaled down, so that
+pieces halve, down to one key, and buckets hold many keys.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from aqp_tpu_torch.ops.kernels import nphj, rho3
+
+U32 = 0xFFFFFFFF
+KEY_PAD_INT = rho3.KEY_PAD_INT
+RCAP = 4096   # the kernel's R keys a CTA
+NDIR = 4096   # the kernel's directory buckets
+
+
+def sub_bounds(kmin, kmax, p, P):
+    """Sub-range p of P of the interval [kmin, kmax]: [A, B), both even."""
+    width = kmax - kmin + 1
+    a = kmin & ~1 if p == 0 else (kmin + p * width // P) & ~1
+    b = (kmax & ~1) + 2 if p == P - 1 else (kmin + (p + 1) * width // P) & ~1
+    return a, b
+
+
+def run_piece(keys, A, B, kmin, kmax):
+    """Positions [lo, hi) of the piece [A, B) in one run's real keys."""
+    lo = 0 if A <= kmin else int(np.searchsorted(keys, A, side="left"))
+    hi = keys.size if B > kmax else int(np.searchsorted(keys, B,
+                                                        side="left"))
+    return lo, hi
+
+
+def directory(rk, A, B, ndir):
+    """(sh, dir): buckets of 2^sh keys over [A, B), at most ndir of them,
+    and dir[t] = the first of the sorted keys rk at or past A + (t << sh)
+    (dir[-1] = rk.size)."""
+    span = B - A
+    sh = 0
+    while (span - 1) >> sh >= ndir:
+        sh += 1
+    nd = ((span - 1) >> sh) + 1
+    return sh, np.searchsorted(rk, A + (np.arange(nd + 1) << sh),
+                               side="left")
+
+
+def lookup(rk, A, sh, dirs, want):
+    """Position of each wanted key among its bucket's keys (lower_bound)
+    and whether it is there."""
+    bw = (want - A) >> sh
+    lo, hi = dirs[bw], dirs[bw + 1]
+    pos = np.clip(np.searchsorted(rk, want, side="left"), lo, hi)
+    hit = pos < hi
+    hit[hit] = rk[pos[hit]] == want[hit]
+    return pos, hit
+
+
+def merge(x, y):
+    """Merge two (keys, payloads) runs sorted by key, x's first on ties."""
+    keys = np.concatenate([x[0], y[0]])
+    order = np.argsort(keys, kind="stable")
+    return keys[order], np.concatenate([x[1], y[1]])[order]
+
+
+def region_runs(k, p, cnt, a, b):
+    """A region's runs as (keys int64, payloads uint32) of real elements."""
+    out = []
+    for i in range(k.shape[1]):
+        c = int(cnt[a, i, b])
+        keys = k[a, i, b, :c].astype(np.int64)
+        pays = (np.zeros(c, np.int64) if p is None
+                else p[a, i, b, :c].astype(np.int64) & U32)
+        out.append((keys, pays))
+    return out
+
+
+def model_region(table, probe, same, P, rcap, ndir):
+    """One region's (matches, checksum sum, halvings) over its P CTAs."""
+    runs = table if same else table + probe
+    real = [r[0] for r in runs if r[0].size]
+    if not real:
+        return 0, 0, 0
+    kmin = min(int(r[0]) for r in real)
+    kmax = max(int(r[-1]) for r in real)
+    m = c = halvings = 0
+    for part in range(P):
+        A, B = sub_bounds(kmin, kmax, part, P)
+        stack = []
+        while True:
+            if A < B:
+                t_pos = [run_piece(r[0], A, B, kmin, kmax) for r in table]
+                s_pos = t_pos if same else [run_piece(r[0], A, B, kmin, kmax)
+                                            for r in probe]
+                vt = sum(h - lo for lo, h in t_pos)
+                vp = sum(h - lo for lo, h in s_pos)
+                if vt > 0 and vp > 0:
+                    subruns = []
+                    for (keys, pays), (lo, h) in zip(table, t_pos):
+                        kk, pp = keys[lo:h], pays[lo:h]
+                        first = np.ones(kk.size, bool)
+                        first[1:] = kk[1:] != kk[:-1]
+                        keep = (kk % 2 == 0) & first
+                        subruns.append((kk[keep], pp[keep]))
+                    kept = sum(s[0].size for s in subruns)
+                    if kept > rcap:
+                        stack.append(B)
+                        halvings += 1
+                        B = A + (((B - A) >> 2) << 1)
+                        continue
+                    level = [s for s in subruns if s[0].size]
+                    while len(level) > 1:
+                        level = [merge(level[q], level[q + 1])
+                                 if q + 1 < len(level) else level[q]
+                                 for q in range(0, len(level), 2)]
+                    rk, rp = level[0] if level else (np.zeros(0, np.int64),
+                                                     np.zeros(0, np.int64))
+                    sh, dirs = directory(rk, A, B, ndir)
+                    for (keys, pays), (lo, h) in zip(probe, s_pos):
+                        kk, pp = keys[lo:h], pays[lo:h]
+                        odd = kk % 2 == 1
+                        if not rk.size or not odd.any():
+                            continue
+                        at, hit = lookup(rk, A, sh, dirs, kk[odd] - 1)
+                        m += int(hit.sum())
+                        c += int((rp[at[hit]] + pp[odd][hit]).sum())
+            if not stack:
+                break
+            A, B = B, stack.pop()
+    return m, c, halvings
+
+
+def model_join(tk, tp, tcnt, sk, sp, scnt, same, P, rcap=RCAP,
+               ndir=NDIR):
+    """(matches, checksum, halvings) of the sub-range join over numpy slot
+    arrays; `same`: K3 (the table is the probe), else K3TWO."""
+    f1, _, f2, _ = tk.shape
+    m = c = h = 0
+    for a in range(f1):
+        for b in range(f2):
+            table = region_runs(tk, tp, tcnt, a, b)
+            probe = table if same else region_runs(sk, sp, scnt, a, b)
+            rm, rc, rh = model_region(table, probe, same, P, rcap, ndir)
+            m, c, h = m + rm, c + rc, h + rh
+    return m, (c & U32) if tp is not None else 0, h
+
+
+# ---------------------------------------------------------------------------
+# Inputs
+
+
+def fill_slots(f1, nbg, f2, cap2, contents):
+    """Slot arrays from contents[(a, j, b)] = (keys, payloads): each slot's
+    real elements sorted by (key, payload as unsigned), pads behind."""
+    k = np.full((f1, nbg, f2, cap2), KEY_PAD_INT, np.int32)
+    p = np.zeros((f1, nbg, f2, cap2), np.int32)
+    cnt = np.zeros((f1, nbg, f2), np.int32)
+    for (a, j, b), (keys, pays) in contents.items():
+        keys = np.asarray(keys, np.int64)
+        pays = np.asarray(pays, np.int64)
+        assert keys.size <= cap2 and (keys >= 0).all()
+        order = np.lexsort((pays & U32, keys))
+        n = keys.size
+        k[a, j, b, :n] = keys[order]
+        p[a, j, b, :n] = pays[order].astype(np.int32)
+        cnt[a, j, b] = n
+    return k, p, cnt
+
+
+def random_slots(rng, f1, nbg, f2, cap2, n_r, n_s, domain, r_runs=None,
+                 s_runs=None, dup_r=False, hit=0.7):
+    """Random R (even) and S (odd) packed keys in each region's own key
+    range, R in runs r_runs (default all), S in s_runs; S keys hit an R
+    key of their region with probability `hit`."""
+    r_runs = range(nbg) if r_runs is None else r_runs
+    s_runs = range(nbg) if s_runs is None else s_runs
+    contents = {}
+    for a in range(f1):
+        for b in range(f2):
+            base = (a * f2 + b) * domain
+            sig = (rng.integers(0, domain // 2, n_r) if dup_r
+                   else rng.choice(domain, n_r, replace=False))
+            r_keys = 2 * (base + sig)
+            pick = rng.choice(r_keys, n_s) + 1 if n_r else np.zeros(0, int)
+            miss = 2 * (base + rng.integers(0, domain, n_s)) + 1
+            s_keys = np.where(rng.random(n_s) < hit, pick, miss) if n_r \
+                else miss
+            for j in range(nbg):
+                contents[(a, j, b)] = ([], [])
+            for keys, runs in ((r_keys, r_runs), (s_keys, s_runs)):
+                if not len(runs):
+                    continue
+                at = rng.choice(list(runs), keys.size)
+                for j in set(at.tolist()):
+                    sel = keys[at == j]
+                    old_k, old_p = contents[(a, j, b)]
+                    contents[(a, j, b)] = (
+                        list(old_k) + sel.tolist(),
+                        list(old_p) + rng.integers(-(1 << 31), 1 << 31,
+                                                   sel.size).tolist())
+    return fill_slots(f1, nbg, f2, cap2, contents)
+
+
+def _t(x):
+    return None if x is None else torch.from_numpy(np.ascontiguousarray(x))
+
+
+def plain_k3(k, p, cnt):
+    return tuple(int(x) for x in rho3.k3_plain(_t(k), _t(p), _t(cnt)))
+
+
+def plain_k3two(tk, tp, tcnt, sk, sp, scnt):
+    return tuple(int(x) for x in nphj.k3two_plain(
+        _t(tk), _t(tp), _t(tcnt), _t(sk), _t(sp), _t(scnt)))
+
+
+def check_k3(k, p, cnt, P=None, rcap=RCAP, ndir=NDIR):
+    """Model == k3_plain, keys-only and with payloads; returns halvings."""
+    P = P or rho3.subranges(k.shape[1], k.shape[3])
+    halvings = []
+    for pay in (None, p):
+        m, c, h = model_join(k, pay, cnt, k, pay, cnt, True, P, rcap, ndir)
+        assert (m, c) == plain_k3(k, pay, cnt)
+        halvings.append(h)
+    assert halvings[0] == halvings[1]
+    return halvings[0]
+
+
+def check_k3two(tk, tp, tcnt, sk, sp, scnt, P=None, rcap=RCAP, ndir=NDIR):
+    """Model == k3two_plain, keys-only and with payloads; returns
+    halvings."""
+    P = P or rho3.subranges(tk.shape[1] + sk.shape[1], tk.shape[3])
+    halvings = []
+    for tpay, spay in ((None, None), (tp, sp)):
+        m, c, h = model_join(tk, tpay, tcnt, sk, spay, scnt, False, P, rcap,
+                             ndir)
+        assert (m, c) == plain_k3two(tk, tpay, tcnt, sk, spay, scnt)
+        halvings.append(h)
+    assert halvings[0] == halvings[1]
+    return halvings[0]
+
+
+# (f1, f2, cap2) of the geometries: SMALL_GEOM-like, PHT_o's f2 = 8 with
+# 16,384-element fine slots, the skew residual's kd = 128 (f1 cut)
+GEOMS = {"small": (20, 4, 2048), "f2=8 kd=128": (3, 8, 16384),
+         "kd=128": (3, 16, 16384)}
+
+
+def _routed(prm, nr, ns, seed, dup_r=False):
+    """K2's fine slots of a packed union of R and S, through the plain
+    pipeline (k1_plain, k2_plain), as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    rk = (rng.integers(1, 1 << 12, nr) if dup_r
+          else rng.choice(1 << 28, nr, replace=False) + 1)
+    sk = np.where(rng.random(ns) < 0.7, rng.choice(rk, ns),
+                  rng.integers(1, 1 << 28, ns))
+    pays = rng.integers(-(1 << 31), 1 << 31, nr + ns)
+    key = torch.from_numpy(np.concatenate([rk, sk]).astype(np.int32))
+    tag = torch.cat([torch.zeros(nr, dtype=torch.int32),
+                     torch.ones(ns, dtype=torch.int32)])
+    packed, alias = rho3.pack_keys(key, tag, rho3.HASH_C)
+    pay = torch.from_numpy(pays.astype(np.int32))
+    k2k, k2p, cnt2, _, ovf = rho3.route_2level(packed, pay, prm, True)
+    assert int(alias) == 0 and int(ovf) == 0
+    return k2k.numpy(), k2p.numpy(), cnt2.numpy()
+
+
+ROUTED = {
+    # SMALL_GEOM (chip_smoke.py): one run a region at a size it holds
+    "small": (rho3.Rho3Params(block_rows=128, slot_rows=8, f1=20, f2=4,
+                              kd_slot_rows=16), 12_000, 1),
+    # the same with 8,192-element fine slots: 2 runs a region
+    "small kd=64": (rho3.Rho3Params(block_rows=128, slot_rows=8, f1=20,
+                                    f2=4, kd_slot_rows=64), 60_000, 2),
+    # f2 = 8 and kd = 128, cut to small blocks: 8 runs a region
+    "f2=8 kd=128": (rho3.Rho3Params(block_rows=128, slot_rows=32, f1=8,
+                                    f2=8, kd_slot_rows=128), 60_000, 8),
+}
+
+
+@pytest.mark.parametrize("dup_r", [False, True], ids=["unique", "dupR"])
+@pytest.mark.parametrize("geom", list(ROUTED))
+def test_model_equals_plain_on_routed_slots(geom, dup_r):
+    """The model on the pipeline's own fine slots, at the wrapper's P, a
+    larger P and a scaled-down R array."""
+    prm, nr, runs = ROUTED[geom]
+    k, p, cnt = _routed(prm, nr, 4 * nr, seed=5, dup_r=dup_r)
+    assert k.shape[1] == runs
+    assert check_k3(k, p, cnt) == 0
+    check_k3(k, p, cnt, P=13, ndir=8)
+    # few distinct R keys with dupR: an array of max(runs, 8) halves too
+    assert check_k3(k, p, cnt, P=2, rcap=max(runs, 8) if dup_r else 64) > 0
+
+
+@pytest.mark.parametrize("geom", list(GEOMS))
+@pytest.mark.parametrize("rcap", [RCAP, 32], ids=["rcap4096", "rcap32"])
+def test_model_equals_plain_with_duplicate_r_keys(geom, rcap):
+    """Duplicate R keys across runs and within a run: the first run's
+    lowest-payload copy answers."""
+    f1, f2, cap2 = GEOMS[geom]
+    rng = np.random.default_rng(11)
+    k, p, cnt = random_slots(rng, f1, 4, f2, cap2, 300, 900, 400,
+                             dup_r=True)
+    slot_r = k[0, 1, 0, :cnt[0, 1, 0]]
+    assert (np.diff(slot_r[slot_r % 2 == 0]) == 0).any()
+    h = check_k3(k, p, cnt, P=3, rcap=rcap, ndir=rcap // 8)
+    assert (h > 0) == (rcap == 32)
+    tk, tp, tcnt = random_slots(rng, f1, 3, f2, cap2, 300, 0, 400,
+                                dup_r=True)
+    sk, sp, scnt = random_slots(rng, f1, 5, f2, cap2, 0, 900, 400)
+    # S keys that hit the table: R key + 1 of the same region
+    for a in range(f1):
+        for b in range(f2):
+            r = np.concatenate([tk[a, j, b, :tcnt[a, j, b]]
+                                for j in range(3)])
+            for j in range(5):
+                c = scnt[a, j, b]
+                take = rng.random(c) < 0.7
+                s = sk[a, j, b, :c].copy()
+                s[take] = rng.choice(r, int(take.sum())) + 1
+                order = np.lexsort((sp[a, j, b, :c].astype(np.int64) & U32,
+                                    s))
+                sk[a, j, b, :c] = s[order]
+                sp[a, j, b, :c] = sp[a, j, b, :c][order]
+    check_k3two(tk, tp, tcnt, sk, sp, scnt, P=2, rcap=rcap)
+
+
+def test_one_key_repeated_past_the_array_halves_down_to_one_key():
+    """One R key 5,000 times (within runs and across all 8 of them) among
+    dense neighbours: with an array of 8 keys the pieces halve until one
+    holds that key alone (its 8 first copies, one a run)."""
+    rng = np.random.default_rng(3)
+    nbg, heavy = 8, 2 * 5000
+    contents = {}
+    for j in range(nbg):
+        keys = [heavy] * 625 + list(range(heavy - 40, heavy + 42, 2))
+        keys += [x + 1 for x in range(heavy - 40, heavy + 42, 2)]
+        contents[(0, j, 0)] = (keys, rng.integers(-(1 << 31), 1 << 31,
+                                                  len(keys)))
+    k, p, cnt = fill_slots(1, nbg, 1, 1024, contents)
+    h = check_k3(k, p, cnt, P=1, rcap=nbg)
+    assert h >= 5
+    # the piece that holds the heavy key alone: one key, nbg copies
+    table = region_runs(k, p, cnt, 0, 0)
+    assert sum(int((r[0] == heavy).any()) for r in table) == nbg
+
+
+def test_keys_on_sub_range_edges_and_the_region_ends():
+    """R keys at every cut and the region's first key, S keys at every
+    cut + 1, cut - 1 (partner cut - 2) and the region's last key."""
+    kmin, kmax, P = 1000, 1000 + 997, 7
+    cuts = [sub_bounds(kmin, kmax, q, P)[0] for q in range(1, P)]
+    r = [kmin] + cuts + [c - 2 for c in cuts] + [kmax - 1]
+    s = [c + 1 for c in cuts] + [c - 1 for c in cuts] + [kmin + 1, kmax]
+    assert kmax % 2 == 1 and all(c % 2 == 0 for c in cuts)
+    rng = np.random.default_rng(4)
+    contents = {(0, 0, 0): (r[:5] + s[:4], rng.integers(0, 99, 9)),
+                (0, 1, 0): (r[5:] + s[4:], rng.integers(0, 99, len(r[5:])
+                                                         + len(s[4:])))}
+    k, p, cnt = fill_slots(1, 2, 1, 64, contents)
+    assert check_k3(k, p, cnt, P=P) == 0
+    assert plain_k3(k, None, cnt)[0] == len(s)
+    tk, tp, tcnt = fill_slots(1, 1, 1, 64, {(0, 0, 0): (r, np.arange(len(r)))})
+    sk, sp, scnt = fill_slots(1, 2, 1, 64, {
+        (0, 0, 0): (s[:6], np.arange(6)),
+        (0, 1, 0): (s[6:], np.arange(len(s) - 6))})
+    check_k3two(tk, tp, tcnt, sk, sp, scnt, P=P)
+    check_k3two(tk, tp, tcnt, sk, sp, scnt, P=P, rcap=2, ndir=2)
+
+
+@pytest.mark.parametrize("geom", list(GEOMS))
+def test_empty_slots_all_r_all_s_regions_and_more_table_runs(geom):
+    """Empty slots and regions, regions of R only and of S only, and a
+    table of more runs than S (K3TWO)."""
+    f1, f2, cap2 = GEOMS[geom]
+    rng = np.random.default_rng(8)
+    k, p, cnt = random_slots(rng, f1, 4, f2, cap2, 200, 600, 1000,
+                             r_runs=[0, 1], s_runs=[1, 2, 3])
+    cnt[0, :, 0] = 0            # an empty region
+    cnt[1, 0, 1] = 0            # an empty slot
+    cnt[2, 1:, 2] = np.minimum(cnt[2, 1:, 2], 0)   # region 2,2: R run only
+    k_r = k.copy()
+    cnt_r = cnt.copy()
+    cnt_r[:, 2:, :] = 0         # every region R and S of runs 0, 1 only
+    for kk, cc in ((k, cnt), (k_r, cnt_r)):
+        check_k3(kk, p, cc)
+        check_k3(kk, p, cc, P=5, rcap=16)
+    tk, tp, tcnt = random_slots(rng, f1, 6, f2, cap2, 300, 0, 1000)
+    sk, sp, scnt = random_slots(rng, f1, 2, f2, cap2, 0, 500, 1000)
+    scnt[0, :, 1] = 0           # no S in a region
+    tcnt[1, :, 0] = 0           # no R in a region
+    assert check_k3two(tk, tp, tcnt, sk, sp, scnt) == 0
+    assert check_k3two(tk, tp, tcnt, sk, sp, scnt, P=4, rcap=32) > 0
+
+
+def test_subranges_at_the_headline_and_the_skew_geometries():
+    """The wrapper's P: K3 8 and K3TWO 10 sub-ranges a region at the
+    headline (nbg 16, table 4, cap2 8,192), 16 and 20 at cap2 16,384."""
+    assert rho3.subranges(16, 8192) == 8
+    assert rho3.subranges(4 + 16, 8192) == 10
+    assert rho3.subranges(16, 16384) == 16
+    assert rho3.subranges(4 + 16, 16384) == 20
+    assert rho3.subranges(1, 1024) == 1
+
+
+def test_sub_range_bounds_cut_at_even_keys_and_cover_the_interval():
+    for kmin, kmax, P in ((0, 1, 1), (3, 3, 4), (7, 2 ** 31 - 2, 20),
+                          (1000, 1997, 7), (6, 9, 16)):
+        bounds = [sub_bounds(kmin, kmax, q, P) for q in range(P)]
+        assert bounds[0][0] <= kmin and bounds[-1][1] > kmax
+        for (a0, b0), (a1, _) in zip(bounds, bounds[1:]):
+            assert b0 == a1
+        assert all(a % 2 == 0 and b % 2 == 0 and a <= b for a, b in bounds)
+
+
+@pytest.mark.parametrize("ndir", [NDIR, 64, 2])
+def test_directory_narrows_each_lookup_to_its_bucket(ndir):
+    """At most ndir buckets of 2^sh keys cover the piece; each key's
+    lower_bound among all merged keys lies in its bucket's range, so the
+    bucket search finds what a search of the whole array finds."""
+    rng = np.random.default_rng(9)
+    for A, B in ((1000, 1000 + 2 * 997), (0, 2), (6, 2 ** 31)):
+        rk = np.unique(rng.integers(A // 2, B // 2, 300)) * 2
+        sh, dirs = directory(rk, A, B, ndir)
+        assert dirs.size - 1 <= ndir and (B - A - 1) >> sh < dirs.size - 1
+        assert dirs[0] == 0 and dirs[-1] == rk.size
+        want = np.concatenate([rk, rk + 2, rng.integers(A, B, 500)])
+        want = want[(want >= A) & (want < B)]
+        pos, hit = lookup(rk, A, sh, dirs, want)
+        glob = np.searchsorted(rk, want, side="left")
+        assert (pos == glob).all()
+        assert (hit == np.isin(want, rk)).all()

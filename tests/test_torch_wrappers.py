@@ -38,8 +38,8 @@ class FakeLib:
                 return 8192 if args[0] == 1 else 16384
             if name == "rho3_max_group":
                 return 1024
-            if name == "rho3_k3_smem":
-                return args[0] * 4 * (3 if args[1] else 2)
+            if name == "rho3_k3m_smem":
+                return args[0] * 4 * 3
             if name == "rstats_max_h":
                 return 1024
             return 0
@@ -109,7 +109,7 @@ def test_each_wrapper_calls_its_launcher_once(lib):
     assert one.shape == (21, 128)
     assert [n for n in lib.calls if n.startswith(("rho3_k", "compact",
                                                   "scatter"))
-            and n not in ("rho3_k3_max_cap", "rho3_k3_smem",
+            and n not in ("rho3_k3_max_cap", "rho3_k3m_smem",
                           "rho3_max_slot", "rho3_max_group")] == [
         "rho3_k1", "rho3_k2", "rho3_k3", "rho3_k1", "rho3_k2", "rho3_k3",
         "rho3_k3m", "compact_windows", "compact_windows",
@@ -154,6 +154,60 @@ def test_k1_and_k2_reject_slots_and_windows_past_the_kernels(lib):
         rho3.k2(_i32(wide.group, wide.f1, wide.cap1), None,
                 _i32(wide.group, wide.f1), wide, 1.0)
     assert not [n for n in lib.calls if n in ("rho3_k1", "rho3_k2")]
+
+
+def test_k3_and_k3two_pass_sub_ranges_and_the_halving_counter(lib):
+    """K3 gets its geometry and P = subranges(nbg, cap2) sub-ranges a
+    region, K3TWO P = subranges(nbg_r + nbg_s, cap2); both add to the
+    device's halving counter (one tensor, kept across calls), and zeroed
+    matches and checksum."""
+    f1, nbg, f2, cap2 = 3, 16, 4, 8192
+    k2, cnt2 = _i32(f1, nbg, f2, cap2), _i32(f1, nbg, f2)
+    counter = rho3.halving_counter("cpu")
+    assert counter.shape == () and counter.dtype == torch.int64
+    for p2 in (None, k2):
+        rho3.k3(k2, p2, cnt2)
+    tk, tc = _i32(f1, 4, f2, cap2), _i32(f1, 4, f2)
+    for tp, sp in ((None, None), (tk, k2)):
+        nphj.k3two(tk, tp, tc, k2, sp, cnt2)
+    k3_calls = [a for n, a in zip(lib.calls, lib.args) if n == "rho3_k3"]
+    two_calls = [a for n, a in zip(lib.calls, lib.args) if n == "nphj_k3two"]
+    assert [a[1] is None for a in k3_calls] == [True, False]
+    assert [a[1] is None for a in two_calls] == [True, False]
+    for a in k3_calls:
+        assert a[3:8] == (f1, nbg, f2, cap2, 8)
+        assert a[10] == counter.data_ptr()
+    for a in two_calls:
+        assert (a[3], a[7]) == (4, nbg)
+        assert a[8:12] == (f1, f2, cap2, 10)
+        assert a[14] == counter.data_ptr()
+    assert rho3.halving_counter("cpu") is counter
+    assert rho3.subranges(nbg, cap2) == 8
+    assert rho3.subranges(4 + nbg, cap2) == 10
+
+
+def test_region_joins_report_fine_slots_past_their_capacity(lib):
+    """cap2 up to rho3_k3_max_cap() (32,768) launches K3 and K3TWO, with or
+    without payloads (their shared memory does not grow with cap2); past
+    it they raise, and K3M past a CTA's shared memory, before a launch."""
+    f1, f2 = 1, 1
+    for cap2, ok in ((32768, True), (65536, False)):
+        k, cnt = _i32(f1, 1, f2, cap2), _i32(f1, 1, f2)
+        for pay in (None, k):
+            if ok:
+                rho3.k3(k, pay, cnt)
+                nphj.k3two(k, pay, cnt, k, pay, cnt)
+            else:
+                with pytest.raises(ValueError, match="exceed K3's 32768"):
+                    rho3.k3(k, pay, cnt)
+                with pytest.raises(ValueError, match="exceed K3TWO's"):
+                    nphj.k3two(k, pay, cnt, k, pay, cnt)
+    k, cnt = _i32(f1, 1, f2, 32768), _i32(f1, 1, f2)
+    with pytest.raises(ValueError, match="shared memory"):
+        rho3.k3m(k, k, cnt, 1)
+    assert [n for n in lib.calls if n in ("rho3_k3", "nphj_k3two",
+                                          "rho3_k3m")] == [
+        "rho3_k3", "nphj_k3two", "rho3_k3", "nphj_k3two"]
 
 
 def test_scan_and_aggregate_wrappers_call_their_launchers_once(lib):
