@@ -1,47 +1,33 @@
 // The region joins shared by rho3.cu (K3, K3M) and nphj.cu (K3TWO,
-// K3TWO_MAT), and the merge-path helpers rho3.cu's K2 uses too.
+// K3TWO_MAT), on the sub-range parts of subrange.cuh.
 //
-// Fine slots have K2's layout: keys (and payloads) of shape
-// (f1, nbg, f2, cap2), counts (f1, nbg, f2); a slot holds its real elements
-// first, sorted by (key, payload as unsigned).  A region is one (f1, f2)
-// bucket pair: `nbg` runs, one slot each.  An S element (odd packed key k)
-// matches when a TABLE run of its region holds k - 1, its R partner.  The
-// first run (in index order) that holds the partner answers, and within it
-// the lowest (key, payload) copy, so a duplicate R key still counts each S
-// element once and the checksum is deterministic.  Matches and the
-// checksum leave a CTA through integer atomicAdd; an unsigned 32-bit
-// atomicAdd wraps mod 2^32, so the checksum is exact in any order.
+// An S element (odd packed key k) matches when a TABLE run of its region
+// holds k - 1, its R partner.  The first run (in index order) that holds
+// the partner answers, and within it the lowest (key, payload) copy, so a
+// duplicate R key still counts each S element once and the checksum is
+// deterministic.  Matches and the checksum leave a CTA through integer
+// atomicAdd; an unsigned 32-bit atomicAdd wraps mod 2^32, so the checksum
+// is exact in any order.
 //
 // K3 and K3M probe and search the same array (RHO's union of R and S, R
 // and S interleaved in each run).  K3TWO and K3TWO_MAT probe S's slots and
 // search the table's, two arrays with their own run counts, so the
 // persistent table is read where it lies.
 //
-// K3 and K3TWO: subrange_join_kernel, one CTA per (region, key sub-range).
-//   A region at the headline holds ~22,800 R and ~91,000 S elements in 16
-//   runs: far more than a CTA's 227 KB of shared memory.  Hashed keys spread
-//   evenly over the region's key interval and every run is sorted, so the
-//   CTA owns a key sub-range of the region across all of its runs, and
-//   every element is read by one CTA only.
-//   - Bounds.  The region's smallest and largest key (the first and last
-//     element of each run) give its interval; it is cut into P equal widths
-//     at EVEN packed keys, so S key k and its partner k - 1 always fall on
-//     the same side.  The first sub-range starts at the smallest key and the
-//     last ends past the largest, so no element is lost whatever scale
-//     routed the keys.  One warp a run finds the sub-range's two bounds in
-//     the run by two 32-way searches in device memory, side by side (3
-//     rounds at 7,100 elements).
-//   - R side.  The CTA reads its sub-range of every table run, run after
-//     run as one virtual array cut into one stretch a warp (coalesced,
+// K3, K3M and K3TWO: subrange_join_kernel, one CTA per (region, key
+//   sub-range).  A region at the headline holds ~22,800 R and ~91,000 S
+//   elements in 16 runs; the CTA owns a key sub-range of all of them
+//   (subrange.cuh: bounds at even keys, pieces, merge).
+//   - R side.  The CTA reads its piece of every table run, run after run
+//     as one virtual array cut into one stretch a warp (coalesced,
 //     SR_ITEMS loads a lane in flight), keeps the even keys that differ
 //     from their predecessor in the run (the first, lowest-payload copy of
 //     each key) and compacts them into shared memory in run order: each
 //     warp counts its kept keys (ballots), one scan gives the warps'
 //     offsets, and each warp reads its stretch again, from L1, to place
-//     them.  The runs' kept sub-runs are then merged pairwise, merge-path
-//     levels with ties to the left (lower) run, so equal keys end in run
-//     order and a lower_bound finds the answering copy; runs that kept
-//     nothing take no level.  Payloads ride along.
+//     them.  The runs' kept sub-runs are then merged (merge_runs), so equal
+//     keys end in run order and a lower_bound finds the answering copy;
+//     runs that kept nothing take no level.  Payloads ride along.
 //   - Too many R.  A piece whose kept R exceed SR_RCAP is cut in two halves
 //     at an even key; the CTA does the left one and keeps the right one on
 //     a stack in shared memory (each halving counted in *halvings).  After
@@ -49,143 +35,46 @@
 //     R key always fits (the launcher requires nbg <= SR_RCAP).
 //   - S side.  A directory of the merged keys (the first key at or past
 //     each of up to SR_DIR equal key buckets of the piece) goes into the
-//     free buffer.  The CTA reads its sub-range of every probe run,
-//     coalesced, and each S element binary-searches its partner among its
-//     bucket's keys (about one).  K3 reads a run's sub-range three times,
-//     the two R sweeps and the S pass (the last two from L1 or L2); K3TWO
-//     reads the table's runs twice and S's once.
+//     free buffer.  The CTA reads its piece of every probe run, coalesced,
+//     and each S element binary-searches its partner among its bucket's
+//     keys (about one).  K3 reads a run's piece three times, the two R
+//     sweeps and the S pass (the last two from L1 or L2); K3TWO reads the
+//     table's runs twice and S's once.
+//   - K3M (MAT) writes its columns from the S pass: the output has K2's
+//     layout, so every element of the piece, R or S, writes its own
+//     position once: a matched S element (((k >> 1) * inv) mod 2^30, R
+//     payload, S payload), every other element (-3, 0, 0), a piece that
+//     kept no R included (a halved piece writes once per half, after its
+//     last halving).  The positions no element owns, [count, cap2) of each
+//     slot, are holes split evenly among the region's P CTAs, an empty
+//     region's too.  inv is the salt's inverse mod 2^30, so the first
+//     column is the original key.  No staging buffer and no match mask:
+//     K3M takes what K3 takes.
 //
-// K3M and K3TWO_MAT: region_join_mat_kernel, one CTA per (region, probe
-//   run j): it stages its probe slot in shared memory, stages each table
-//   run of the region in turn, and each still unmatched S element
-//   binary-searches it.  The CTA of (region, j) owns the output positions
-//   of its slot (a * sa + b * sb + j * sj, + cap2): a matched S element
-//   writes (((k >> 1) * inv) mod 2^30, R payload, S payload) at its own
-//   position, every other position gets (-3, 0, 0).  `tail` more chunks of
-//   cap2 per region, after the probe runs' slots, are holes too; the CTA of
-//   run j writes the chunks j, j + nbg, ... of them.  inv is the salt's
-//   inverse mod 2^30, so the first column is the original key.
+// K3TWO_MAT: region_join_mat_kernel, one CTA per (region, probe run j): it
+//   stages its probe slot in shared memory, stages each table run of the
+//   region in turn, and each still unmatched S element binary-searches it.
+//   The CTA of (region, j) owns the output positions of its slot (a * sa +
+//   b * sb + j * sj, + cap2): a matched S element writes as K3M's, every
+//   other position gets (-3, 0, 0).  `tail` more chunks of cap2 per region,
+//   after the probe runs' slots, are holes too; the CTA of run j writes the
+//   chunks j, j + nbg, ... of them.
 
 #pragma once
 
-#include <climits>
-
-#include <cuda_runtime.h>
+#include "subrange.cuh"
 
 namespace {
 
-constexpr unsigned FULL = 0xffffffffu;
+constexpr int SR_DIR = 4096;   // directory buckets, <= SR_BUF - 1
 
-// ---------------------------------------------------------------------------
-// Warp and merge-path helpers
-
-__device__ __forceinline__ unsigned warp_sum(unsigned v) {
-  for (int d = 16; d > 0; d >>= 1) v += __shfl_down_sync(FULL, v, d);
-  return v;
-}
-
-__device__ __forceinline__ unsigned warp_incl_scan(unsigned x, int lane) {
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const unsigned y = __shfl_up_sync(FULL, x, o);
-    if (lane >= o) x += y;
-  }
-  return x;
-}
-
-// The number of a's values among the first k outputs of merge(a[0, na),
-// b[0, nb)), a's value first on ties.
-template <class FA, class FB>
-__device__ __forceinline__ int co_rank(FA a, int na, FB b, int nb, int k) {
-  int lo = max(0, k - nb), hi = min(k, na);
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (a(mid) <= b(k - 1 - mid))
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  return lo;
-}
-
-// Shared-memory slot of value x: one pad word every 16 keeps a thread's
-// consecutive values and 16 consecutive threads' values on distinct banks.
-__device__ __forceinline__ int pad_at(int x) { return x + (x >> 4); }
-
-// The last sub-run bi in [0, G) with off[bi] <= x (off[0] = 0 <= x).
-__device__ __forceinline__ int run_of(const int* off, int G, int x) {
-  int lo = 0, hi = G;      // the answer lies in [lo, hi)
-  while (hi - lo > 1) {
-    const int mid = (lo + hi) >> 1;
-    if (off[mid] <= x)
-      lo = mid;
-    else
-      hi = mid;
-  }
-  return lo;
-}
-
-struct Runs {
-  const int* k;    // (f1, nbg, f2, cap2) keys
-  const int* p;    // payloads of the same shape, or null
-  const int* cnt;  // (f1, nbg, f2) real elements per slot
-  int nbg;
+// K3M's output columns, at K2's layout (k null: no columns)
+struct MatOut {
+  int* k;
+  int* rp;
+  int* sp;
+  int inv;   // the salt's inverse mod 2^30
 };
-
-// ---------------------------------------------------------------------------
-// K3, K3TWO: one CTA per (region, key sub-range)
-
-constexpr int SR_THREADS = 512;
-constexpr int SR_WARPS = SR_THREADS / 32;
-constexpr int SR_ITEMS = 4;                   // loads a lane has in flight
-constexpr int SR_CHUNK = SR_THREADS * SR_ITEMS;
-constexpr int SR_IT = 8;                      // merge outputs a thread
-constexpr int SR_RCAP = SR_THREADS * SR_IT;   // R keys a CTA holds: 4,096
-constexpr int SR_BUF = SR_RCAP + SR_RCAP / 16;  // pad_at(SR_RCAP)
-constexpr int SR_DIR = 4096;                  // buckets, <= SR_BUF - 1
-constexpr int SR_STACK = 40;                  // halvings pending (<= 31)
-// Registers a thread is held to: 3 CTAs of 512 an SM, 40 registers (with
-// the loop state in shared memory nothing spills); the latency-bound
-// searches and sweeps gain from the third CTA
-constexpr int SR_MIN_CTAS = 3;
-static_assert(SR_WARPS <= 32, "one warp scans the warps' counts");
-
-// [lo, hi) after a 32-way search step of `step` found t of its 32 keys
-// below the bound.
-__device__ __forceinline__ void narrow(int& lo, int& hi, int step, int t) {
-  if (lo < hi) {
-    if (t == 0) {
-      hi = lo;
-    } else {
-      hi = min(hi, lo + t * step);
-      lo += (t - 1) * step + 1;
-    }
-  }
-}
-
-// One round of two 32-way searches by a whole warp, for the first index
-// in [lo0, hi0) whose key is >= c0 and in [lo1, hi1) whose key is >= c1:
-// the lanes load 32 evenly spaced keys of each range (none of a range
-// that is done), both loads in flight at once.
-__device__ __forceinline__ void search_round(const int* __restrict__ keys,
-                                             long long c0, long long c1,
-                                             int lane, int& lo0, int& hi0,
-                                             int& lo1, int& hi1) {
-  const int s0 = (hi0 - lo0 + 31) >> 5;
-  const int s1 = (hi1 - lo1 + 31) >> 5;
-  const int q0 = lo0 + lane * s0;
-  const int q1 = lo1 + lane * s1;
-  const int k0 = q0 < hi0 ? __ldg(keys + q0) : INT_MAX;
-  const int k1 = q1 < hi1 ? __ldg(keys + q1) : INT_MAX;
-  narrow(lo0, hi0, s0, __popc(__ballot_sync(FULL, q0 < hi0 && k0 < c0)));
-  narrow(lo1, hi1, s1, __popc(__ballot_sync(FULL, q1 < hi1 && k1 < c1)));
-}
-
-// Element offset of run i's slot of region (a, b).
-__device__ __forceinline__ size_t slot_at(const Runs& r, int a, int i, int b,
-                                          int f2, int cap2) {
-  return (((size_t)a * r.nbg + i) * f2 + b) * cap2;
-}
 
 // Shared memory of the sub-range join: the ping-pong R buffers (keys, and
 // payloads with PAY; the directory takes the free key buffer), the table
@@ -197,53 +86,14 @@ inline long long subrange_smem(bool pay, bool same, int nt, int np) {
                 (same ? 0 : 2LL * np + 1) + SR_WARPS + 1);
 }
 
-// Sets lo[i] to the first position of run i's slot at or past key A and
-// off[i] to the count up to B, for each of n runs (one warp a run); A at
-// or below kmin means position 0, B past kmax the slot's count.
-__device__ __forceinline__ void piece_bounds(const Runs& r, int n, int a,
-                                             int b, int f2, int cap2,
-                                             long long A, long long B,
-                                             int kmin, int kmax, int* lo,
-                                             int* off) {
-  const int lane = threadIdx.x & 31;
-  for (int i = threadIdx.x >> 5; i < n; i += SR_WARPS) {
-    const size_t s = ((size_t)a * r.nbg + i) * f2 + b;
-    const int c = r.cnt[s];
-    const int* keys = r.k + s * cap2;
-    // both bounds at once: their loads share each round trip
-    int l = 0, l_hi = A <= kmin ? 0 : c;
-    int h = 0, h_hi = B > kmax ? 0 : c;
-    while (l < l_hi || h < h_hi)
-      search_round(keys, A, B, lane, l, l_hi, h, h_hi);
-    if (B > kmax) h = c;
-    if (lane == 0) {
-      lo[i] = l;
-      off[i] = h - l;
-    }
-  }
-}
-
-// off[0, n) holds lengths: make it their exclusive prefix, off[n] the
-// total (one warp).
-__device__ __forceinline__ void lengths_to_offsets(int* off, int n,
-                                                   int lane) {
-  unsigned carry = 0;
-  for (int i0 = 0; i0 < n; i0 += 32) {
-    const int i = i0 + lane;
-    const unsigned len = i < n ? off[i] : 0;
-    const unsigned incl = warp_incl_scan(len, lane);
-    if (i < n) off[i] = carry + incl - len;
-    carry += __shfl_sync(FULL, incl, 31);
-  }
-  if (lane == 0) off[n] = carry;
-}
-
-template <bool PAY, bool SAME>
+template <bool PAY, bool SAME, bool MAT>
 __global__ void __launch_bounds__(SR_THREADS, SR_MIN_CTAS)
     subrange_join_kernel(Runs probe, Runs table, int f2, int cap2, int P,
+                         MatOut out,
                          unsigned long long* __restrict__ matches,
                          unsigned int* __restrict__ checksum,
                          unsigned long long* __restrict__ halvings) {
+  static_assert(!MAT || (PAY && SAME), "K3M: one array, with payloads");
   extern __shared__ int sm_sub[];
   // R buffer `src` (0 or 1): keys at sm_sub + src * SR_BUF, payloads (PAY
   // only) at sm_sub + (2 + src) * SR_BUF
@@ -288,15 +138,25 @@ __global__ void __launch_bounds__(SR_THREADS, SR_MIN_CTAS)
       atomicMax(&s_kmax, keys[c - 1]);
     }
   }
+  if constexpr (MAT) {
+    // the holes no element owns, [count, cap2) of each slot: this CTA
+    // writes its P-th share of each slot's, a warp a slot
+    for (int j = warp; j < nt; j += SR_WARPS) {
+      const size_t s = ((size_t)a * nt + j) * f2 + b;
+      const int c = table.cnt[s];
+      const int e0 = c + (int)((long long)(cap2 - c) * p / P);
+      const int e1 = c + (int)((long long)(cap2 - c) * (p + 1) / P);
+      for (int e = e0 + lane; e < e1; e += 32) {
+        out.k[s * cap2 + e] = -3;
+        out.rp[s * cap2 + e] = 0;
+        out.sp[s * cap2 + e] = 0;
+      }
+    }
+  }
   __syncthreads();
   if (s_kmax < 0) return;  // an empty region (the whole CTA leaves)
   if (tid == 0) {
-    const int kmin = s_kmin;
-    const int kmax = s_kmax;
-    const long long width = (long long)kmax - kmin + 1;
-    s_ab[0] = p == 0 ? (kmin & ~1) : (kmin + p * width / P) & ~1LL;
-    s_ab[1] = p == P - 1 ? (long long)(kmax & ~1) + 2
-                         : (kmin + (p + 1) * width / P) & ~1LL;
+    subrange_bounds(s_kmin, s_kmax, p, P, s_ab);
     s_top = 0;
   }
   __syncthreads();
@@ -422,49 +282,7 @@ __global__ void __launch_bounds__(SR_THREADS, SR_MIN_CTAS)
           s_runs = g;
         }
         __syncthreads();
-        const int G = s_runs;
-        int src = 0;
-        for (int w = 1; w < G; w <<= 1, src ^= 1) {
-          // merge level: sub-runs [q, q + w) and [q + w, q + 2w) of m_off
-          const int* ak = sm_sub + src * SR_BUF;
-          const int* ap = sm_sub + (2 + src) * SR_BUF;
-          int* dk = sm_sub + (src ^ 1) * SR_BUF;
-          int* dp = sm_sub + (2 + (src ^ 1)) * SR_BUF;
-          const int d = tid * SR_IT;
-          if (d < kept) {
-            int q = run_of(m_off, G, d) / (2 * w) * (2 * w);
-            int ps = m_off[q];
-            int pm = m_off[min(q + w, G)];
-            int pe = m_off[min(q + 2 * w, G)];
-            const int k = d - ps;
-            const int i = co_rank(
-                [&](int t) { return ak[pad_at(ps + t)]; }, pm - ps,
-                [&](int t) { return ak[pad_at(pm + t)]; }, pe - pm, k);
-            int ia = ps + i, ib = pm + k - i;
-#pragma unroll
-            for (int j = 0; j < SR_IT; ++j) {
-              const int x = d + j;
-              if (x < kept) {
-                while (x == pe) {   // the next pair starts here
-                  q += 2 * w;
-                  ps = pe;
-                  pm = m_off[min(q + w, G)];
-                  pe = m_off[min(q + 2 * w, G)];
-                  ia = ps;
-                  ib = pm;
-                }
-                const int va = ia < pm ? ak[pad_at(ia)] : 0;
-                const int vb = ib < pe ? ak[pad_at(ib)] : 0;
-                const bool take_a = ib >= pe || (ia < pm && va <= vb);
-                dk[pad_at(x)] = take_a ? va : vb;
-                if (PAY) dp[pad_at(x)] = ap[pad_at(take_a ? ia : ib)];
-                ia += take_a;
-                ib += !take_a;
-              }
-            }
-          }
-          __syncthreads();
-        }
+        const int src = merge_runs<PAY>(sm_sub, m_off, s_runs, kept);
         const int* rk = sm_sub + src * SR_BUF;
         const int* rp = sm_sub + (2 + src) * SR_BUF;
         // directory of the merged keys in the other buffer: dir[t] is the
@@ -486,16 +304,19 @@ __global__ void __launch_bounds__(SR_THREADS, SR_MIN_CTAS)
         }
         __syncthreads();
         // S pass: each S element of the piece looks up its partner; this
-        // thread's positions rise, so its run only moves on
+        // thread's positions rise, so its run only moves on.  K3M: every
+        // element of the piece writes its own position, R or S, even where
+        // the piece kept no R
         int run = 0;
         int r_off = 0, r_next = p_off[1], r_lo = p_lo[0];
-        for (int c0 = 0; kept > 0 && c0 < vp; c0 += SR_CHUNK) {
+        for (int c0 = 0; (MAT || kept > 0) && c0 < vp; c0 += SR_CHUNK) {
           int key[SR_ITEMS];
           unsigned at[SR_ITEMS];   // element offsets from p_base
+          unsigned hole = 0;       // K3M: bit q, item q writes a hole
 #pragma unroll
           for (int q = 0; q < SR_ITEMS; ++q) {
             const int x = c0 + q * SR_THREADS + tid;
-            key[q] = 0;   // even: never looked up
+            key[q] = 0;   // even: never looked up, never written
             at[q] = 0;
             if (x < vp) {
               while (x >= r_next) {
@@ -506,11 +327,12 @@ __global__ void __launch_bounds__(SR_THREADS, SR_MIN_CTAS)
               }
               at[q] = run * run_stride + r_lo + x - r_off;
               key[q] = __ldg(probe.k + p_base + at[q]);
+              if (MAT) hole |= 1u << q;
             }
           }
 #pragma unroll
           for (int q = 0; q < SR_ITEMS; ++q) {
-            if (key[q] & 1) {
+            if ((key[q] & 1) && (!MAT || kept > 0)) {
               const int want = key[q] - 1;
               const int bw = (int)((unsigned)(want - a32) >> sh);
               int lo = dir[bw], hi = dir[bw + 1];
@@ -521,10 +343,26 @@ __global__ void __launch_bounds__(SR_THREADS, SR_MIN_CTAS)
               }
               if (lo < end && rk[pad_at(lo)] == want) {
                 ++my_m;
-                if (PAY)
-                  my_c += (unsigned)rp[pad_at(lo)] +
-                          (unsigned)__ldg(probe.p + p_base + at[q]);
+                if (PAY) {
+                  const int r_pay = rp[pad_at(lo)];
+                  const int s_pay = __ldg(probe.p + p_base + at[q]);
+                  my_c += (unsigned)r_pay + (unsigned)s_pay;
+                  if constexpr (MAT) {
+                    const size_t o = p_base + at[q];
+                    out.k[o] = (int)(((unsigned)(key[q] >> 1) *
+                                      (unsigned)out.inv) & 0x3FFFFFFFu);
+                    out.rp[o] = r_pay;
+                    out.sp[o] = s_pay;
+                    hole &= ~(1u << q);
+                  }
+                }
               }
+            }
+            if (MAT && ((hole >> q) & 1u)) {
+              const size_t o = p_base + at[q];
+              out.k[o] = -3;
+              out.rp[o] = 0;
+              out.sp[o] = 0;
             }
           }
         }
@@ -550,40 +388,47 @@ __global__ void __launch_bounds__(SR_THREADS, SR_MIN_CTAS)
   }
 }
 
-// Largest fine-slot capacity the region joins take (K3M's per-thread match
-// mask: RJ_THREADS * RJ_MAX_PER_THREAD).
+// Largest fine-slot capacity the region joins take (K3TWO_MAT's per-thread
+// match mask: RJ_THREADS * RJ_MAX_PER_THREAD).
 constexpr int RJ_THREADS = 512;
 constexpr int RJ_MAX_PER_THREAD = 64;
 constexpr int RJ_MAX_CAP = RJ_THREADS * RJ_MAX_PER_THREAD;
 
 // K3 (SAME: probe and table are one array) or K3TWO: P key sub-ranges a
-// region; payloads on both sides or neither.
-template <bool SAME>
+// region; payloads on both sides or neither.  MAT (K3M, SAME with
+// payloads): and the columns of `out`, every position written.
+template <bool SAME, bool MAT = false>
 cudaError_t launch_subrange_join(Runs probe, Runs table, int f1, int f2,
                                  int cap2, int P,
                                  unsigned long long* matches,
                                  unsigned int* checksum,
                                  unsigned long long* halvings,
-                                 cudaStream_t st) {
+                                 cudaStream_t st, MatOut out = MatOut{}) {
+  static_assert(!MAT || SAME, "K3M probes its own runs");
   const bool pay = table.p != nullptr;
   if ((probe.p == nullptr) == pay || f1 < 1 || f2 < 1 || P < 1 || cap2 < 1 ||
       cap2 > RJ_MAX_CAP || table.nbg < 0 || table.nbg > SR_RCAP ||
       probe.nbg < 0 || (long long)f1 * f2 * P > INT_MAX ||
       (long long)table.nbg * f2 * cap2 > INT_MAX ||
-      (long long)probe.nbg * f2 * cap2 > INT_MAX)
+      (long long)probe.nbg * f2 * cap2 > INT_MAX ||
+      (MAT && (!pay || out.k == nullptr || out.rp == nullptr ||
+               out.sp == nullptr)))
     return cudaErrorInvalidValue;
   const long long grid = (long long)f1 * f2 * P;
   if (table.nbg == 0 || probe.nbg == 0) return cudaSuccess;
   const int smem = (int)subrange_smem(pay, SAME, table.nbg, probe.nbg);
   cudaError_t err;
-#define RJ_SUB(PAY)                                                          \
-  err = cudaFuncSetAttribute(subrange_join_kernel<PAY, SAME>,                \
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,    \
-                             smem);                                          \
-  if (err != cudaSuccess) return err;                                        \
-  subrange_join_kernel<PAY, SAME><<<(unsigned)grid, SR_THREADS, smem, st>>>( \
-      probe, table, f2, cap2, P, matches, checksum, halvings)
-  if (pay) {
+#define RJ_SUB(PAY)                                                        \
+  err = cudaFuncSetAttribute(subrange_join_kernel<PAY, SAME, MAT>,         \
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,  \
+                             smem);                                        \
+  if (err != cudaSuccess) return err;                                      \
+  subrange_join_kernel<PAY, SAME, MAT>                                     \
+      <<<(unsigned)grid, SR_THREADS, smem, st>>>(                          \
+          probe, table, f2, cap2, P, out, matches, checksum, halvings)
+  if constexpr (MAT) {
+    RJ_SUB(true);
+  } else if (pay) {
     RJ_SUB(true);
   } else {
     RJ_SUB(false);
@@ -593,7 +438,7 @@ cudaError_t launch_subrange_join(Runs probe, Runs table, int f1, int f2,
 }
 
 // ---------------------------------------------------------------------------
-// K3M, K3TWO_MAT: one CTA per (region, probe run)
+// K3TWO_MAT: one CTA per (region, probe run)
 
 struct Cols {  // materialized columns
   int* k;
@@ -695,8 +540,8 @@ __global__ void __launch_bounds__(RJ_THREADS) region_join_mat_kernel(
   }
 }
 
-// Shared memory the materializing region join needs for a fine-slot
-// capacity of cap2.
+// Shared memory K3TWO_MAT's region join needs for a fine-slot capacity of
+// cap2.
 inline long long region_join_mat_smem(int cap2) {
   return (long long)cap2 * sizeof(int) * 3;
 }

@@ -87,10 +87,10 @@
 //         key a run, merges the runs' R in run order in shared memory, then
 //         reads the sub-range again and each S element binary-searches the
 //         merged R for its partner (packed key - 1).
-//   K3M = region_join_mat_kernel (region_join.cuh, shared with K3TWO_MAT):
-//         one CTA per (region, probe run); every run of the region is
-//         staged in turn and each unmatched S element binary-searches it;
-//         it writes its output columns.
+//   K3M = subrange_join_kernel with MAT (region_join.cuh): K3's CTAs, and
+//         the S pass writes every element's own output position (a matched
+//         S element its row, any other element a hole); the CTAs of a
+//         region split the holes past each slot's count.
 //
 // Numerics.  Build without --use_fast_math.  fine_bucket() must reproduce
 // the float32 rounding of rho3._fine_bucket bit for bit: int -> float
@@ -126,9 +126,8 @@
 //       and the binary searches run in shared memory.
 //   K3M reads the real fine-slot elements with payloads (524 MB) and writes
 //       three columns of the fine-slot array's length (3 x 302 MB): >=
-//       0.43 ms.  Each run is staged once per probe run of its region (nbg
-//       times), which L2 serves; each output position is written once, the
-//       holes included, so no pre-fill pass is needed.
+//       0.43 ms.  It reads what K3 reads; each output position is written
+//       once, the holes included, coalesced, so no pre-fill pass is needed.
 // PERF.md has the measured times.
 
 #include <cuda_runtime.h>
@@ -1015,10 +1014,12 @@ int rho3_k2(const int* k1, const int* p1, const int* cnt1, int f1, int group,
                                      ovf, st));
 }
 
-// Shared memory K3M needs for a fine-slot capacity of cap2.
+// Shared memory K3TWO_MAT needs for a fine-slot capacity of cap2 (K3M's
+// does not grow with cap2).
 long long rho3_k3m_smem(int cap2) { return region_join_mat_smem(cap2); }
 
-// Largest fine-slot capacity K3 and K3M take (K3M's per-thread match mask).
+// Largest fine-slot capacity K3, K3M, K3TWO and K3TWO_MAT take (K3TWO_MAT's
+// per-thread match mask).
 int rho3_k3_max_cap() { return RJ_MAX_CAP; }
 
 // K3: K2's fine slots -> *matches, *checksum, with P key sub-ranges a
@@ -1035,19 +1036,17 @@ int rho3_k3(const int* k2, const int* p2, const int* cnt2, int f1, int nbg,
 }
 
 // K3M: K2's fine slots with payloads -> ok/orp/osp[f1][nbg][f2][cap2] (every
-// position written), *matches, *checksum (accumulated; the caller zeroes
-// them).
+// position written), *matches, *checksum, with P key sub-ranges a region;
+// adds each halving of a sub-range to *halvings (all accumulated; the
+// caller zeroes matches and checksum).
 int rho3_k3m(const int* k2, const int* p2, const int* cnt2, int f1, int nbg,
-             int f2, int cap2, int inv, int* ok, int* orp, int* osp,
+             int f2, int cap2, int P, int inv, int* ok, int* orp, int* osp,
              unsigned long long* matches, unsigned int* checksum,
-             void* stream) {
+             unsigned long long* halvings, void* stream) {
   const Runs runs{k2, p2, cnt2, nbg};
-  // output position of slot (a, j, b) = its position in K2's layout
-  const Cols out{ok, orp, osp, (long long)nbg * f2 * cap2, cap2,
-                 (long long)f2 * cap2, 0};
-  return (int)launch_region_join_mat(runs, runs, f1, f2, cap2, inv, out,
-                                     matches, checksum,
-                                     (cudaStream_t)stream);
+  return (int)launch_subrange_join<true, true>(
+      runs, runs, f1, f2, cap2, P, matches, checksum, halvings,
+      (cudaStream_t)stream, MatOut{ok, orp, osp, inv});
 }
 
 }  // extern "C"

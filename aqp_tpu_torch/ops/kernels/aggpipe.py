@@ -35,8 +35,9 @@ from aqp_tpu_torch.ops.kernels.build import need, on_cuda, ptr, stream
 from aqp_tpu_torch.ops.kernels.compact import (scatter_segments,
                                                scatter_segments_one)
 from aqp_tpu_torch.ops.kernels.rho3 import (HASH_MASK, KEY_PAD_INT, LANES,
-                                            MAX_KEY, Rho3Params, pack_keys,
-                                            route_2level)
+                                            MAX_KEY, Rho3Params,
+                                            halving_counter, pack_keys,
+                                            route_2level, subranges)
 
 HOLE = -3            # dead output slot key (never a real group key)
 POISON = 1 << 30     # num_groups of an incomplete result
@@ -96,7 +97,8 @@ def k3agg_plain(k2, p2, cnt2):
 
 def k3agg(k2, p2, cnt2):
     """K3AGG: per-region group rows of range-routed fine slots (see
-    k3agg_plain)."""
+    k3agg_plain).  Adds the pieces it halved to the device's
+    rho3.halving_counter."""
     if not on_cuda(k2):
         return k3agg_plain(k2, p2, cnt2)
     dev = k2.device
@@ -105,16 +107,19 @@ def k3agg(k2, p2, cnt2):
     need(p2, "p2", (f1, nbg, f2, cap2), dev)
     need(cnt2, "cnt2", (f1, nbg, f2), dev)
     nreg, w = f1 * f2, nbg * cap2
+    P = subranges(nbg, cap2)   # as K3's
     scratch = [torch.empty((nreg * w,), dtype=torch.int32, device=dev)
                for _ in range(5)]
-    ocount = torch.empty((nreg * nbg,), dtype=torch.int32, device=dev)
+    sub = [torch.empty((nreg * P,), dtype=torch.int32, device=dev)
+           for _ in range(2)]
     outs = [torch.empty((nreg, w), dtype=torch.int32, device=dev)
             for _ in range(5)]
     counts = torch.empty((nreg,), dtype=torch.int32, device=dev)
     lib = build.load()
     err = lib.aggpipe_k3agg(ptr(k2), ptr(p2), ptr(cnt2), f1, nbg, f2, cap2,
-                            *map(ptr, scratch), ptr(ocount), *map(ptr, outs),
-                            ptr(counts), stream(dev))
+                            P, *map(ptr, scratch), *map(ptr, sub),
+                            *map(ptr, outs), ptr(counts),
+                            ptr(halving_counter(dev)), stream(dev))
     build.check(lib, err, "aggpipe K3AGG")
     LAUNCHES["K3AGG"] += 1
     return (*outs, counts)

@@ -64,16 +64,16 @@ SIGNATURES = {
     "rho3_k3m_smem": ([_I], _LL),
     "rho3_k3_max_cap": ([], _I),
     "rho3_k3": ([_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P], _I),
-    "rho3_k3m": ([_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P],
-                 _I),
+    "rho3_k3m": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                  _P], _I),
     "compact_windows": ([_P, _I, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P,
                          _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
                         _I),
     "scatter_segments": ([_P, _P, _P, _P, _P, _I, _LL, _LL, _P, _P, _P], _I),
     "scan_reduce": ([_P, _LL, _I, _I, _I, _P, _P], _I),
     "scan_bitvector": ([_P, _LL, _I, _I, _P, _P], _I),
-    "aggpipe_k3agg": ([_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                       _P, _P, _P, _P, _P, _P, _P], _I),
+    "aggpipe_k3agg": ([_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                       _P, _P, _P, _P, _P, _P, _P, _P, _P, _P], _I),
     "nphj_k3two": ([_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                     _P, _P], _I),
     "nphj_k3two_mat": ([_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P,

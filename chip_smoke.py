@@ -8,8 +8,9 @@ Phases, each printed on one line with its elapsed seconds:
   2. build: every kernel is compiled from aqp_tpu_torch/csrc, one nvcc
      process per source started together, then one link (no PyTorch
      headers, no ninja, no network); each compile runs with -Xptxas -v,
-     and blocksort.cu's, rho3.cu's and nphj.cu's reports (the last two
-     hold the region joins) are printed and must show no spill;
+     and blocksort.cu's, rho3.cu's, nphj.cu's and aggpipe.cu's reports
+     (the sub-range kernels are in the last three) are printed and must
+     show no spill;
   3. kernels: K1, K2, K3 and K3M against their plain PyTorch versions on
      the card, at the default, a small, the skew tier's residual and the
      no-partition variants' geometries (f1 = 48; f2 = 32 with 4,096-value
@@ -19,12 +20,15 @@ Phases, each printed on one line with its elapsed seconds:
      fine slots' contents included) and a K1 overflow (K1's counts and
      overflow; K2 exact on K1's output); the window compactor (key +
      payload and keys-only) and the segment scatters at w=512 with a
-     cutting and a non-cutting keep fraction: exact equality; K3 also
-     where a region's R passes one CTA's array (R = 13.1M, S = 1M at
-     f2 = 8 with 16,384-value fine slots: its sub-ranges must halve) and
-     on one R key 5,000 times (the skew residual's geometry); each K3 and
-     K3TWO check prints the sub-ranges it halved, and a {"halvings"...}
-     line before the kernels line gathers them;
+     cutting and a non-cutting keep fraction: exact equality; K3 and K3M
+     also on MWAY's range route (salt 1, the range scale), where a
+     region's R passes one CTA's array (R = 13.1M, S = 1M at f2 = 8 with
+     16,384-value fine slots: their sub-ranges must halve) and on one R
+     key 5,000 times (the skew residual's geometry); K3M is held to K3's
+     every case with payloads (all three columns, matches and checksum);
+     each K3, K3M, K3TWO and K3AGG check prints the sub-ranges (pieces) it
+     halved, and a {"halvings"...} line before the kernels line gathers
+     them;
   4. the slice at full width: run_join("RHO") keys-only and checksummed and
      engine.rho_join_count_fused on |R| = 13,107,200 dense PK keys and
      |S| = 52,428,800 tiled FK keys with seeded random payloads (bench.py's
@@ -35,7 +39,8 @@ Phases, each printed on one line with its elapsed seconds:
      same function (library time): for K1 and K2 a torch.sort of the same
      routing, for K3 torch.isin(S - 1, R) over the live elements (with
      payloads torch.sort + torch.searchsorted + a gather), for K3M the
-     same with index_put_ of the columns;
+     same with index_put_ of the columns (K3M also checked exactly at
+     the headline);
   6. the ladder: one key on a quarter of S is served by the heavy-split
      skew tier; 80 keys of 17,000 rows each overflow every salt and the skew
      tier, and must get the exact core's answer;
@@ -65,9 +70,12 @@ Phases, each printed on one line with its elapsed seconds:
      materialize output (group key = key & (2^20 - 1), compact_kp_fast,
      groupby_aggregate_routed_auto with capacity 2^21) and the jittered
      branch (64 groups, capacity 64), equal to the sort-based aggregate;
-     the leg's steps timed, and K3AGG against its plain version at the
-     leg's K2 shapes, beside torch.sort + bincount + index_add_ +
-     scatter_reduce_ over its live rows (library time).
+     the leg's steps timed, and K3AGG against its plain version (all six
+     outputs) at 2^16 and 2^19 groups, the small geometry, 64 jittered
+     groups, one key filling a region, sparse keys (its pieces must
+     halve), empty regions, and both legs' K2 shapes, beside torch.sort +
+     bincount + index_add_ + scatter_reduce_ over its live rows (library
+     time); its bound counts the five full region blocks it writes.
  11. the no-partition family at full width: K3TWO (keys-only and with
      payloads at the default, small, PHT_un, PHT_o and skew-residual
      geometries, with empty table runs, more table runs than S runs (its
@@ -221,6 +229,22 @@ def cuda_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
+def kernel_split(fn, reps: int = 5) -> dict:
+    """Device microseconds per call of each CUDA kernel `fn` launches, from
+    torch.profiler over `reps` calls after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {ev.key.replace("(anonymous namespace)::", "").split("(")[0]:
+            ev.device_time_total / reps
+            for ev in prof.key_averages() if ev.device_time_total > 0}
+
+
 def max_abs_err(got, want) -> int:
     """Largest |got - want| over matching outputs (None must meet None)."""
     err = 0
@@ -235,14 +259,16 @@ def max_abs_err(got, want) -> int:
     return err
 
 
-def stage_inputs(rk, rp, sk, sp, prm, with_payload):
-    """The inputs the main path hands K1, K2 and K3, from the kernels."""
+def stage_inputs(rk, rp, sk, sp, prm, with_payload, salt=rho3.HASH_C,
+                 scale=None):
+    """The inputs the main path hands K1, K2 and K3, from the kernels
+    (MWAY's range route: salt 1 and its scale)."""
     key = torch.cat([rk, sk])
     tag = torch.cat([torch.zeros_like(rk), torch.ones_like(sk)])
-    packed, alias = rho3.pack_keys(key, tag, rho3.HASH_C)
+    packed, alias = rho3.pack_keys(key, tag, salt)
     pay = torch.cat([rp, sp]) if with_payload else None
     nb = rho3.num_blocks(packed.numel(), prm)
-    scale = rho3.default_scale(prm)
+    scale = rho3.default_scale(prm) if scale is None else scale
     k1_in = (packed, pay, nb, prm, scale)
     k1_out = rho3.k1(*k1_in)
     k2_in = (k1_out[0], k1_out[1], k1_out[2], prm, scale)
@@ -273,8 +299,10 @@ def kernel_bytes(name, args, out) -> int:
 
 
 PLAIN = {"K1": rho3.k1_plain, "K2": rho3.k2_plain, "K3": rho3.k3_plain,
-         "K3TWO": nphj.k3two_plain}
-KERNEL = {"K1": rho3.k1, "K2": rho3.k2, "K3": rho3.k3, "K3TWO": nphj.k3two}
+         "K3M": rho3.k3m_plain, "K3TWO": nphj.k3two_plain,
+         "K3AGG": aggpipe.k3agg_plain}
+KERNEL = {"K1": rho3.k1, "K2": rho3.k2, "K3": rho3.k3, "K3M": rho3.k3m,
+          "K3TWO": nphj.k3two, "K3AGG": aggpipe.k3agg}
 INV = rho3._modinv_pow2(rho3.HASH_C)
 U32 = 0xFFFFFFFF
 
@@ -317,13 +345,13 @@ def kernel_row(name, err, k_ms, p_ms, bound_ms, library_ms=None,
     return row
 
 
-HALVINGS = {}       # region-join case -> the sub-ranges it halved
+HALVINGS = {}       # sub-range kernel case -> the pieces it halved
 
 
-def check_region_join(name, label, args) -> int:
-    """K3 or K3TWO equals its plain version exactly on `args`; returns,
-    records and prints the sub-ranges it halved (its R past one CTA's
-    array)."""
+def check_subrange(name, label, args) -> int:
+    """K3, K3M, K3TWO or K3AGG equals its plain version exactly on `args`
+    (every output); returns, records and prints the pieces it halved (a
+    region join's R, K3AGG's elements, past one CTA's array)."""
     halved = rho3.halving_counter(DEV)
     halved.zero_()
     got = KERNEL[name](*args)
@@ -338,10 +366,12 @@ def check_region_join(name, label, args) -> int:
     return n
 
 
-def check_kernels(rk, rp, sk, sp, prm, with_payload, label) -> int:
-    """Each kernel equals its plain version exactly on the same inputs.
-    Returns the sub-ranges K3 halved."""
-    alias, stages = stage_inputs(rk, rp, sk, sp, prm, with_payload)
+def check_kernels(rk, rp, sk, sp, prm, with_payload, label, salt=rho3.HASH_C,
+                  scale=None) -> int:
+    """Each kernel equals its plain version exactly on the same inputs (K3M
+    with payloads).  Returns the sub-ranges K3 halved."""
+    alias, stages = stage_inputs(rk, rp, sk, sp, prm, with_payload, salt,
+                                 scale)
     require(alias == 0, "pack_keys reported an alias")
     for name in ("K1", "K2"):
         args, _ = stages[name]
@@ -352,17 +382,14 @@ def check_kernels(rk, rp, sk, sp, prm, with_payload, label) -> int:
         err = max_abs_err(got, want)
         require(err == 0, f"{name} differs from its plain version by {err}"
                 f" ({prm}, payload={with_payload})")
-    halved = check_region_join(
+    halved = check_subrange(
         "K3", f"{label}, {'payload' if with_payload else 'keys-only'}",
         stages["K3"][0])
     if with_payload:
-        args, _ = stages["K3"]
-        got = rho3.k3m(*args, INV)
-        want = rho3.k3m_plain(*args, INV)
-        torch.cuda.synchronize()
-        err = max_abs_err(got, want)
-        require(err == 0, f"K3M differs from its plain version by {err} "
-                f"({prm})")
+        m_halved = check_subrange("K3M", label,
+                                  (*stages["K3"][0], rho3._modinv_pow2(salt)))
+        require(m_halved == halved, f"K3M halved {m_halved} sub-ranges, K3 "
+                f"{halved} ({label})")
     return halved
 
 
@@ -677,7 +704,7 @@ def main() -> int:
     _, secs = build.build()
     build.load()
     say(f"build: {secs:.2f} s of nvcc")
-    for source in ("blocksort.cu", "rho3.cu", "nphj.cu"):
+    for source in ("blocksort.cu", "rho3.cu", "nphj.cu", "aggpipe.cu"):
         report = build.ptxas_report(source)
         for line in report:
             print(f"  {line}", flush=True)
@@ -706,6 +733,14 @@ def main() -> int:
     for with_payload in (False, True):
         check_kernels(rk, rp, sk, sp, rho3.Rho3Params(), with_payload,
                       "duplicate R keys")
+    # MWAY's range route: salt 1 and the range scale, so a region holds an
+    # ascending key range (K3M's first column is the key itself)
+    rm, sm = seeded(1 << 20, 4 << 20, seed=102)
+    for with_payload in (False, True):
+        check_kernels(rm.key, rm.payload, sm.key, sm.payload,
+                      rho3.Rho3Params(), with_payload, "MWAY's range route",
+                      salt=1, scale=sortmerge.mway_scale(rm.key, sm.key))
+    del rm, sm
     # K3 where a region's R passes one CTA's array: R = 13.1M, S = 1M at
     # f2 = 8 with 16,384-value fine slots (PHT_o's geometry), the
     # sub-ranges must halve
@@ -742,9 +777,9 @@ def main() -> int:
     say("kernels: K1, K2, K3, K3M, compact_windows, scatter_segments and "
         "scatter_segments_one equal their plain versions (default, small, "
         "residual, PHT_no, PHT_un and PHT_o geometry, unique and duplicate "
-        "R keys, keys-only and with payloads; K3 also R-heavy at f2 = 8 / "
-        "kd = 128 (halving) and on one R key 5,000 times; K1 and K2 on "
-        "MWAY's scale, "
+        "R keys, keys-only and with payloads; K3 and K3M also on MWAY's "
+        "range route, R-heavy at f2 = 8 / kd = 128 (halving) and on one R "
+        "key 5,000 times; K1 and K2 on MWAY's scale, "
         "duplicate group keys, equal keys, a K2-only and a K1 overflow; "
         "windows cut and not cut)")
 
@@ -826,7 +861,7 @@ def main() -> int:
         for name in ("K1", "K2", "K3"):
             args, _ = stages[name]
             if name == "K3":
-                check_region_join("K3", f"headline, {mode}", args)
+                check_subrange("K3", f"headline, {mode}", args)
                 err, out = 0, None
             else:
                 out = KERNEL[name](*args)
@@ -862,13 +897,8 @@ def main() -> int:
                 rows[name] = row
         if with_payload:   # K3M takes K3's inputs with payloads
             args = (*stages["K3"][0], INV)
-            out = rho3.k3m(*args)
-            want = rho3.k3m_plain(*args)
-            torch.cuda.synchronize()
-            err = max_abs_err(out, want)
-            require(err == 0, "K3M differs from its plain version at the "
-                    "headline shape")
-            del want
+            check_subrange("K3M", "headline", args)
+            err = 0
             k_ms = cuda_ms(lambda: rho3.k3m(*args), REPS)
             p_ms = cuda_ms(lambda: rho3.k3m_plain(*args), 1)
             k2k, k2p, cnt2 = args[:3]
@@ -882,7 +912,6 @@ def main() -> int:
                                      JOIN_LIBRARY_MAT)
             say(f"K3M payload: {k_ms:.3f} ms (plain {p_ms:.3f} ms, bound "
                 f"{bound:.3f} ms, library {lib_ms:.3f} ms)")
-            del out
         del stages
         torch.cuda.synchronize()
 
@@ -1112,7 +1141,7 @@ def skew_steps(relR, zs, cap) -> dict:
                                                  pres, rph, with_pay=cs)
         _, stages = stage_inputs(relR.key, relR.payload, sk_res, zs.payload,
                                  prm, cs)
-        check_region_join("K3", f"z=1.5 residual, {label}", stages["K3"][0])
+        check_subrange("K3", f"z=1.5 residual, {label}", stages["K3"][0])
         del stages
         steps[f"{label} heavy_split_pass"] = cuda_ms(
             lambda: skewtier.heavy_split_pass(zs.key, zs.payload, hk, pres,
@@ -1498,27 +1527,73 @@ def scan_phase() -> dict:
 
 
 def check_k3agg() -> None:
-    """K3AGG equals its plain version on range-routed slots: the default
-    geometry with 2^16 groups of wide values, the small one, and an input
-    with holes."""
+    """K3AGG equals its plain version exactly (all six outputs) on
+    range-routed slots: the default geometry with 2^16 groups of wide
+    values, the small one, an input with holes, the 64-group leg's jittered
+    keys, one key filling a whole region (single-key pieces), sparse keys
+    over [0, 2^30 - 2) gathered near the start of each region (its first
+    sub-range halves) and empty regions; each case prints the pieces it
+    halved."""
     gen = torch.Generator(device=DEV).manual_seed(808)
-    for prm, n, groups in ((rho3.Rho3Params(), 4 << 20, 1 << 16),
-                           (SMALL_GEOM, 1 << 16, 3000),
-                           (rho3.Rho3Params(), (1 << 20) + 99, 1 << 19)):
-        key = torch.randint(0, groups, (n,), generator=gen, device=DEV,
-                            dtype=torch.int32) * 5
-        key = torch.where(torch.rand(n, generator=gen, device=DEV) < 0.1,
-                          -3, key)
-        val = torch.randint(-(1 << 31), 1 << 31, (n,), generator=gen,
-                            device=DEV, dtype=torch.int64).int()
-        args = k3agg_inputs(key, val, prm)
-        require(int(args[3]) == 0, "routing overflowed in the K3AGG check")
-        got = aggpipe.k3agg(*args[:3])
-        want = aggpipe.k3agg_plain(*args[:3])
-        torch.cuda.synchronize()
-        err = max_abs_err(got, want)
-        require(err == 0, f"K3AGG differs from its plain version by {err} "
-                f"({prm}, {groups} groups)")
+    prm = rho3.Rho3Params()
+
+    def ints(n, lo, hi):
+        return torch.randint(lo, hi, (n,), generator=gen, device=DEV,
+                             dtype=torch.int64).int()
+
+    def holes(key, frac):
+        return torch.where(torch.rand(key.numel(), generator=gen,
+                                      device=DEV) < frac, -3, key)
+
+    cases = {}
+    for label, p, n, groups in (("2^16 groups", prm, 4 << 20, 1 << 16),
+                                ("small geometry", SMALL_GEOM, 1 << 16, 3000),
+                                ("2^19 groups", prm, (1 << 20) + 99,
+                                 1 << 19)):
+        cases[label] = (p, holes(ints(n, 0, groups) * 5, 0.1))
+    # the 64-group leg's first level: 64 keys jittered into 32,768
+    n = 8 << 20
+    cases["64 groups, jittered"] = (prm, aggpipe.jittered_keys(
+        holes(ints(n, 0, LOW_GROUPS), 0.1), aggpipe.jitter_for(LOW_GROUPS)))
+    # one key fills region (0, 0): cap2 rows of key 0 in each of two
+    # windows (~256 a K1 block); the other keys lie past 2^16, outside its
+    # fine bucket and its level-1 bucket
+    win = prm.group * prm.block
+    key = ints(2 * win, 1 << 16, 1 << 20)
+    for w0 in (0, win):
+        key[torch.randperm(win, generator=gen, device=DEV)[:prm.cap2]
+            + w0] = 0
+    cases["one key fills a region"] = (prm, key)
+    # sparse keys: half spread over [0, 2^30 - 2), half on 256 keys an
+    # eighth into a region's key range
+    n = 4 << 20
+    width = (1 << 30) // prm.gmax
+    near = ints(n, 0, prm.gmax) * width + width // 8 + ints(n, 0, 256)
+    cases["sparse keys"] = (prm, torch.where(ints(n, 0, 2) == 0,
+                                             ints(n, 0, rho3.MAX_KEY), near))
+    # empty regions: keys below 7 * 2^17 and 100 rows of 2^20 - 1 (the
+    # top eighth of the regions is empty but for one)
+    n = 2 << 20
+    key = holes(ints(n, 0, 7 << 17), 0.2)
+    key[ints(100, 0, n).long()] = (1 << 20) - 1
+    cases["empty regions"] = (prm, key)
+    for label, (p, key) in cases.items():
+        val = ints(key.numel(), -(1 << 31), 1 << 31)
+        args = k3agg_inputs(key, val, p)
+        require(int(args[3]) == 0, f"routing overflowed in the K3AGG check "
+                f"({label})")
+        k2, _, cnt2 = args[:3]
+        halved = check_subrange("K3AGG", label, args[:3])
+        if label == "one key fills a region":
+            require(bool((cnt2[0, :, 0] == p.cap2).all())
+                    and bool((k2[0, :, 0] == 0).all()),
+                    "key 0 does not fill region (0, 0)")
+        if label == "sparse keys":
+            require(halved > 0, "K3AGG halved no piece where a sub-range "
+                    "passes one CTA's array")
+        if label == "empty regions":
+            require(bool((cnt2.sum(dim=1) == 0).any()), "no region is empty")
+        del args, k2, cnt2
 
 
 def agg_library(key, val):
@@ -1573,7 +1648,8 @@ def aggregate_phase(key, spay) -> dict:
     shapes.  Returns the kernel's row."""
     check_k3agg()
     say("aggregate: K3AGG equals its plain version (default and small "
-        "geometry, holes, wide values)")
+        "geometry, holes, wide values, 64 jittered groups, one key filling a "
+        "region, sparse keys (halving), empty regions)")
     # bench.py sizes the compaction at ceil(|S| / 128) + 16 rows and does
     # not read its overflow; the block-granular output can need one partial
     # row per window more than that (1,152 windows here), so the leg gets
@@ -1648,27 +1724,37 @@ def aggregate_phase(key, spay) -> dict:
     ek = aggpipe.jittered_keys(ck64, jit)
     cap64 = LOW_GROUPS * jit + 128 * prm.f1 * prm.f2 + 128
     args64 = k3agg_inputs(ek, cv64, prm)
+    require(int(args64[3]) == 0, "the 64-group leg's routing overflowed")
+    check_subrange("K3AGG", f"{LOW_GROUPS} groups, the leg's jittered keys",
+                   args64[:3])
     steps[f"{LOW_GROUPS} groups: routed pipeline on the jittered keys "
           f"(jitter {jit})"] = lambda: aggpipe.groupby_aggregate_routed(
               ek, cv64, cap64)
     steps[f"{LOW_GROUPS} groups: K3AGG"] = lambda: aggpipe.k3agg(
         *args64[:3])
     out["steps_ms"] = {k: cuda_ms(f, REPS) for k, f in steps.items()}
+    # K3AGG's two passes (reduce, place) apart
+    out["k3agg_split_us"] = {
+        f"{AGG_GROUPS} groups": kernel_split(steps["K3AGG"]),
+        f"{LOW_GROUPS} groups": kernel_split(steps[f"{LOW_GROUPS} groups: "
+                                                  "K3AGG"])}
+    say(f"K3AGG's passes, device us a call: {out['k3agg_split_us']}")
     for k, v in out["steps_ms"].items():
         say(f"aggregate step {k}: {v:.3f} ms")
     del ck64, cv64, ek, args64
     # K3AGG alone at the leg's K2 shapes
-    want = aggpipe.k3agg_plain(k2, v2, cnt2)
-    torch.cuda.synchronize()
-    err = max_abs_err(blocks, want)
-    require(err == 0, "K3AGG differs from its plain version at the "
-            "aggregate leg's shapes")
-    del want
+    check_subrange("K3AGG", f"{AGG_GROUPS} groups, the leg's shapes",
+                   (k2, v2, cnt2))
+    err = 0
     k_ms = out["steps_ms"]["K3AGG"]
     p_ms = cuda_ms(lambda: aggpipe.k3agg_plain(k2, v2, cnt2), 1)
     groups = int(blocks[5].long().sum())
-    nbytes_ = (int(cnt2.long().sum()) * 8 + cnt2.numel() * 4 + groups * 20
-               + blocks[5].numel() * 4)
+    # the bound: the live pairs and the counts read, the five full region
+    # blocks (rows and fill) and the region counts written; the rows alone
+    # (20 bytes a group) beside it, as the bound was counted before
+    read = int(cnt2.long().sum()) * 8 + cnt2.numel() * 4
+    nbytes_ = read + nbytes(*blocks)
+    rows_only = read + groups * 20 + blocks[5].numel() * 4
     bound = nbytes_ / HBM_BYTES_PER_S * 1e3
     live = torch.arange(k2.shape[-1], device=DEV) < cnt2[..., None].long()
     live &= (k2 >= 0) & (k2 != rho3.KEY_PAD_INT)
@@ -1678,7 +1764,10 @@ def aggregate_phase(key, spay) -> dict:
     row = kernel_row("K3AGG", err, k_ms, p_ms, bound, lib_ms, AGG_LIBRARY)
     say(f"K3AGG ({groups} groups over {int(cnt2.long().sum())} routed rows, "
         f"nbg={nbg}): {k_ms:.3f} ms (plain {p_ms:.3f} ms, bound "
-        f"{bound:.3f} ms from {nbytes_} bytes, library {lib_ms:.3f} ms)")
+        f"{bound:.3f} ms from {nbytes_} bytes with the full region blocks; "
+        f"{rows_only} bytes with the rows alone, "
+        f"{rows_only / HBM_BYTES_PER_S * 1e3:.3f} ms; library "
+        f"{lib_ms:.3f} ms)")
     print(json.dumps({"aggregate": out}), flush=True)
     return {"K3AGG": row}
 
@@ -1750,7 +1839,7 @@ def check_nphj_kernels() -> None:
         for with_payload in (False, True):
             args, ovf = nphj_stage(rk, rp, sk, sp, prm, with_payload)
             require(ovf == 0, f"nphj routing overflowed ({label})")
-            halved = check_region_join(
+            halved = check_subrange(
                 "K3TWO", f"{label}, "
                 f"{'payload' if with_payload else 'keys-only'}", args)
             # 8M table keys over 2 sub-ranges a region: ~6,900 R each
@@ -1996,7 +2085,7 @@ def nopart_phase(relR, relS) -> dict:
         require(ovf == 0, "headline nphj routing overflowed")
         tcnt, scnt = args[2], args[5]
         real = int(tcnt.long().sum() + scnt.long().sum())
-        check_region_join(
+        check_subrange(
             "K3TWO", f"headline, {'payload' if with_payload else 'keys-only'}",
             args)
         err = 0

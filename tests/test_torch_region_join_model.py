@@ -27,8 +27,15 @@ sub-range p) of P:
              among its bucket's merged keys; a hit counts, and with
              payloads adds the answering R payload and its own, mod 2^32.
 K3 is the model with the union's runs as table and probe; K3TWO with the
-table's runs and S's.  The kernel's rcap is 4,096 R keys (SR_RCAP) and its
-ndir 4,096 buckets (SR_DIR); the tests also run them scaled down, so that
+table's runs and S's.  K3M is K3 whose S pass writes, for every element of
+each piece it reads (R or S, a piece that kept no R included), its own
+position of K2's layout: a matched S element ((packed >> 1) * inv mod
+2^30, R payload, S payload), any other element (-3, 0, 0); the positions
+past each slot's count are holes split evenly among the region's P CTAs
+(the q-th CTA writes [c + (cap2 - c) q / P, c + (cap2 - c) (q + 1) / P)
+of a slot of count c), an empty region's too, so every position is written
+exactly once.  The kernel's rcap is 4,096 R keys (SR_RCAP) and its ndir
+4,096 buckets (SR_DIR); the tests also run them scaled down, so that
 pieces halve, down to one key, and buckets hold many keys.
 """
 
@@ -40,6 +47,7 @@ from aqp_tpu_torch.ops.kernels import nphj, rho3
 
 U32 = 0xFFFFFFFF
 KEY_PAD_INT = rho3.KEY_PAD_INT
+INV = rho3._modinv_pow2(rho3.HASH_C)
 RCAP = 4096   # the kernel's R keys a CTA
 NDIR = 4096   # the kernel's directory buckets
 
@@ -103,8 +111,13 @@ def region_runs(k, p, cnt, a, b):
     return out
 
 
-def model_region(table, probe, same, P, rcap, ndir):
-    """One region's (matches, checksum sum, halvings) over its P CTAs."""
+def model_region(table, probe, same, P, rcap, ndir, emit=None):
+    """One region's (matches, checksum sum, halvings) over its P CTAs.
+
+    emit(i, lo, hit, r_pay), where given (K3M), receives each probe run
+    i's stretch [lo, lo + hit.size) of each piece the S pass reads, a piece
+    that kept no R included: whether each element matched and the
+    answering R payload (0 where it did not)."""
     runs = table if same else table + probe
     real = [r[0] for r in runs if r[0].size]
     if not real:
@@ -144,14 +157,20 @@ def model_region(table, probe, same, P, rcap, ndir):
                     rk, rp = level[0] if level else (np.zeros(0, np.int64),
                                                      np.zeros(0, np.int64))
                     sh, dirs = directory(rk, A, B, ndir)
-                    for (keys, pays), (lo, h) in zip(probe, s_pos):
+                    for i, ((keys, pays), (lo, h)) in enumerate(zip(probe,
+                                                                     s_pos)):
                         kk, pp = keys[lo:h], pays[lo:h]
                         odd = kk % 2 == 1
-                        if not rk.size or not odd.any():
-                            continue
-                        at, hit = lookup(rk, A, sh, dirs, kk[odd] - 1)
-                        m += int(hit.sum())
-                        c += int((rp[at[hit]] + pp[odd][hit]).sum())
+                        hit_all = np.zeros(kk.size, bool)
+                        r_pay = np.zeros(kk.size, np.int64)
+                        if rk.size and odd.any():
+                            at, hit = lookup(rk, A, sh, dirs, kk[odd] - 1)
+                            m += int(hit.sum())
+                            c += int((rp[at[hit]] + pp[odd][hit]).sum())
+                            hit_all[np.flatnonzero(odd)[hit]] = True
+                            r_pay[hit_all] = rp[at[hit]]
+                        if emit is not None:
+                            emit(i, lo, hit_all, r_pay)
             if not stack:
                 break
             A, B = B, stack.pop()
@@ -458,3 +477,137 @@ def test_directory_narrows_each_lookup_to_its_bucket(ndir):
         glob = np.searchsorted(rk, want, side="left")
         assert (pos == glob).all()
         assert (hit == np.isin(want, rk)).all()
+
+
+# ---------------------------------------------------------------------------
+# K3M: the materializing S pass
+
+
+def _i32(u):
+    """Unsigned 32-bit values (int64) as their int32 bits."""
+    return (np.asarray(u, np.int64) & U32).astype(np.uint32).view(np.int32)
+
+
+def model_k3m(k, p, cnt, inv, P, rcap=RCAP, ndir=NDIR):
+    """K3M from the model: (matches, checksum, key, r_payload, s_payload
+    columns, the writes of each position, halvings)."""
+    f1, nbg, f2, cap2 = k.shape
+    cols = [np.zeros(k.size, np.int64) for _ in range(3)]
+    writes = np.zeros(k.size, np.int64)
+
+    def put(q, *vals):
+        for col, val in zip(cols, vals):
+            col[q] = val
+        np.add.at(writes, q, 1)
+
+    m = c = halvings = 0
+    for a in range(f1):
+        for b in range(f2):
+            runs = region_runs(k, p, cnt, a, b)
+
+            def slot(i):
+                return ((a * nbg + i) * f2 + b) * cap2
+
+            def emit(i, lo, hit, r_pay):
+                keys, pays = (x[lo:lo + hit.size] for x in runs[i])
+                orig = ((keys >> 1) * inv) & rho3.HASH_MASK
+                put(slot(i) + lo + np.arange(hit.size),
+                    np.where(hit, orig, -3), np.where(hit, r_pay, 0),
+                    np.where(hit, pays, 0))
+
+            rm, rc, rh = model_region(runs, runs, True, P, rcap, ndir, emit)
+            m, c, halvings = m + rm, c + rc, halvings + rh
+            for part in range(P):     # the holes no element owns
+                for i in range(nbg):
+                    n = int(cnt[a, i, b])
+                    e0 = n + (cap2 - n) * part // P
+                    e1 = n + (cap2 - n) * (part + 1) // P
+                    put(slot(i) + np.arange(e0, e1), -3, 0, 0)
+    return (m, c & U32, *(_i32(col) for col in cols), writes, halvings)
+
+
+def check_k3m(k, p, cnt, inv=INV, P=None, rcap=RCAP, ndir=NDIR):
+    """Model == k3m_plain, every column, with every position written once;
+    the same halvings as K3's model.  Returns the halvings."""
+    P = P or rho3.subranges(k.shape[1], k.shape[3])
+    m, c, ok, orp, osp, writes, h = model_k3m(k, p, cnt, inv, P, rcap, ndir)
+    assert (writes == 1).all()
+    want = rho3.k3m_plain(_t(k), _t(p), _t(cnt), inv)
+    assert (m, c) == (int(want[0]), int(want[1]))
+    for got, col in zip((ok, orp, osp), want[2:]):
+        np.testing.assert_array_equal(got, col.numpy())
+    assert h == model_join(k, p, cnt, k, p, cnt, True, P, rcap, ndir)[2]
+    return h
+
+
+@pytest.mark.parametrize("dup_r", [False, True], ids=["unique", "dupR"])
+@pytest.mark.parametrize("geom", list(ROUTED))
+def test_k3m_model_equals_plain_on_routed_slots(geom, dup_r):
+    """K3M's model on the pipeline's own fine slots: R elements, matched
+    and unmatched S and the slots' tails, at the wrapper's P, a larger P
+    with few directory buckets, and a scaled-down R array (halving)."""
+    prm, nr, _ = ROUTED[geom]
+    k, p, cnt = _routed(prm, nr, 4 * nr, seed=6, dup_r=dup_r)
+    assert check_k3m(k, p, cnt) == 0
+    check_k3m(k, p, cnt, P=13, ndir=8)
+    assert check_k3m(k, p, cnt, P=2, rcap=max(k.shape[1], 8) if dup_r
+                     else 64) > 0
+
+
+def test_k3m_model_on_the_range_route():
+    """MWAY's range route (salt 1, the range scale): inv = 1, regions hold
+    ascending key ranges."""
+    prm = ROUTED["small kd=64"][0]
+    rng = np.random.default_rng(12)
+    rk = rng.choice(1 << 20, 30_000, replace=False) + 1
+    sk = np.where(rng.random(90_000) < 0.7, rng.choice(rk, 90_000),
+                  rng.integers(1, 1 << 20, 90_000))
+    key = torch.from_numpy(np.concatenate([rk, sk]).astype(np.int32))
+    tag = torch.cat([torch.zeros(rk.size, dtype=torch.int32),
+                     torch.ones(sk.size, dtype=torch.int32)])
+    packed, _ = rho3.pack_keys(key, tag, 1)
+    scale = prm.gmax / float(int(key.max()) + 1) * (1 - 1e-6)
+    pay = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, key.numel())
+                           .astype(np.int32))
+    k2k, k2p, cnt2, _, ovf = rho3.route_2level(packed, pay, prm, True,
+                                               scale=scale)
+    assert int(ovf) == 0 and rho3._modinv_pow2(1) == 1
+    check_k3m(k2k.numpy(), k2p.numpy(), cnt2.numpy(), inv=1)
+    assert check_k3m(k2k.numpy(), k2p.numpy(), cnt2.numpy(), inv=1, P=3,
+                     rcap=32) > 0
+
+
+@pytest.mark.parametrize("geom", list(GEOMS))
+def test_k3m_model_writes_holes_where_no_r_is(geom):
+    """Pieces that keep no R (regions of S only, S runs apart from the R
+    runs), an empty region and an empty slot: their elements and tails
+    are holes, written once."""
+    f1, f2, cap2 = GEOMS[geom]
+    rng = np.random.default_rng(13)
+    k, p, cnt = random_slots(rng, f1, 4, f2, cap2, 200, 600, 1000,
+                             r_runs=[0, 1], s_runs=[1, 2, 3])
+    cnt[0, :, 0] = 0            # an empty region
+    cnt[1, 0, 1] = 0            # an empty slot
+    cnt[2, :2, 2] = 0           # region (2, 2): S only
+    check_k3m(k, p, cnt)
+    assert check_k3m(k, p, cnt, P=5, rcap=16, ndir=4) > 0
+    sk, sp, scnt = random_slots(rng, f1, 3, f2, cap2, 0, 500, 1000)
+    assert plain_k3(sk, sp, scnt)[0] == 0     # no R anywhere
+    check_k3m(sk, sp, scnt, P=3)
+
+
+def test_k3m_model_on_one_key_repeated_past_the_array():
+    """One R key 5,000 times among dense neighbours: the pieces halve
+    down to the key alone, and each half writes its positions once."""
+    rng = np.random.default_rng(14)
+    nbg, heavy = 8, 2 * 5000
+    contents = {}
+    for j in range(nbg):
+        keys = [heavy] * 625 + list(range(heavy - 40, heavy + 42, 2))
+        keys += [x + 1 for x in range(heavy - 40, heavy + 42, 2)]
+        keys += [heavy + 1] * 30
+        contents[(0, j, 0)] = (keys, rng.integers(-(1 << 31), 1 << 31,
+                                                  len(keys)))
+    k, p, cnt = fill_slots(1, nbg, 1, 1024, contents)
+    assert check_k3m(k, p, cnt, P=1, rcap=nbg) >= 5
+    assert check_k3m(k, p, cnt, P=3, rcap=nbg, ndir=2) > 0

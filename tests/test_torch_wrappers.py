@@ -94,6 +94,12 @@ def test_each_wrapper_calls_its_launcher_once(lib):
         assert m.shape == c.shape == ()
     m, c, ok, orp, osp = rho3.k3m(k2, p2, cnt2, 7)
     assert ok.shape == orp.shape == osp.shape == (k2.numel(),)
+    # K3M: K3's geometry and sub-ranges, inv, and the halving counter
+    k3m_args = lib.args[lib.calls.index("rho3_k3m")]
+    assert k3m_args[3:9] == (prm.f1, nbg, prm.f2, prm.cap2,
+                             rho3.subranges(nbg, prm.cap2), 7)
+    assert k3m_args[9:12] == tuple(t.data_ptr() for t in (ok, orp, osp))
+    assert k3m_args[14] == rho3.halving_counter("cpu").data_ptr()
     col = _i32(10_000)
     for payloads, fills in (([col, _i32(10_000)], (5, 0)), ([col], (5,))):
         blocks, counts = lanecompact._compact_windows(col, payloads, 0, 9, 8,
@@ -188,8 +194,9 @@ def test_k3_and_k3two_pass_sub_ranges_and_the_halving_counter(lib):
 
 def test_region_joins_report_fine_slots_past_their_capacity(lib):
     """cap2 up to rho3_k3_max_cap() (32,768) launches K3 and K3TWO, with or
-    without payloads (their shared memory does not grow with cap2); past
-    it they raise, and K3M past a CTA's shared memory, before a launch."""
+    without payloads, and K3M (their shared memory does not grow with
+    cap2); past it they raise, and K3TWO_MAT past a CTA's shared memory,
+    before a launch."""
     f1, f2 = 1, 1
     for cap2, ok in ((32768, True), (65536, False)):
         k, cnt = _i32(f1, 1, f2, cap2), _i32(f1, 1, f2)
@@ -202,12 +209,18 @@ def test_region_joins_report_fine_slots_past_their_capacity(lib):
                     rho3.k3(k, pay, cnt)
                 with pytest.raises(ValueError, match="exceed K3TWO's"):
                     nphj.k3two(k, pay, cnt, k, pay, cnt)
+        if ok:
+            rho3.k3m(k, k, cnt, 1)
+        else:
+            with pytest.raises(ValueError, match="exceed K3M's 32768"):
+                rho3.k3m(k, k, cnt, 1)
     k, cnt = _i32(f1, 1, f2, 32768), _i32(f1, 1, f2)
     with pytest.raises(ValueError, match="shared memory"):
-        rho3.k3m(k, k, cnt, 1)
+        nphj.k3two_mat(k, k, cnt, k, k, cnt, 1)
     assert [n for n in lib.calls if n in ("rho3_k3", "nphj_k3two",
-                                          "rho3_k3m")] == [
-        "rho3_k3", "nphj_k3two", "rho3_k3", "nphj_k3two"]
+                                          "rho3_k3m", "nphj_k3two_mat")] == [
+        "rho3_k3", "nphj_k3two", "rho3_k3", "nphj_k3two", "rho3_k3m"]
+    assert "rho3_k3m_smem" not in lib.calls[:lib.calls.index("rho3_k3m")]
 
 
 def test_scan_and_aggregate_wrappers_call_their_launchers_once(lib):
@@ -229,6 +242,12 @@ def test_scan_and_aggregate_wrappers_call_their_launchers_once(lib):
     k2 = _i32(6, 2, 4, 256)
     outs = aggpipe.k3agg(k2, k2, _i32(6, 2, 4))
     assert [o.shape for o in outs] == [(24, 512)] * 5 + [(24,)]
+    # K3AGG: its geometry, P sub-ranges a region, the five scratch blocks
+    # and the sub-ranges' two ints, the outputs, the halving counter
+    agg_args = lib.args[lib.calls.index("aggpipe_k3agg")]
+    assert agg_args[3:8] == (6, 2, 4, 256, rho3.subranges(2, 256))
+    assert agg_args[15:21] == tuple(o.data_ptr() for o in outs)
+    assert agg_args[21] == rho3.halving_counter("cpu").data_ptr()
     assert [n for n in lib.calls if n != "rho3_error_string"] == [
         "scan_reduce", "scan_reduce", "scan_bitvector", "compact_windows",
         "compact_windows", "compact_windows", "aggpipe_k3agg"]
