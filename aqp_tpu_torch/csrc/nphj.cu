@@ -14,24 +14,25 @@
 // region) into (f1, nbg_s, f2, cap2).  The TPU kernel merges both sides'
 // runs of a region in VMEM and propagates the last R over the combined
 // window; a region (up to 2 x 16 runs of 16,384 keys) does not fit the
-// 227 KB of shared memory a CTA has.  So these launch the region joins of
+// 227 KB of shared memory a CTA has.  So both launch the sub-range join of
 // region_join.cuh with the S slots as the probe runs and the table's as
 // the searched runs, the table read where it lies, never copied next to S:
-//   K3TWO      the sub-range join: one CTA per (region, key sub-range),
-//              which reads its sub-range of each table run once (the first
-//              copy of each R key, merged in run order in shared memory)
-//              and of each S run once (a binary search an S element).
-//   K3TWO_MAT  the materializing join: one CTA per (region, S run), each
-//              table run of the region staged in turn and binary-searched.
+// one CTA per (region, key sub-range), which reads its sub-range of each
+// table run once (the first copy of each R key, merged in run order in
+// shared memory) and of each S run once (a binary search an S element).
+// K3TWO_MAT is its MAT form: each S element writes its own output row, a
+// match or a hole, from the S pass, and the region's CTAs split the holes
+// no element owns (the S slots past their counts and the tail's chunks).
 //
 // Materialized layout (the reference's): three int32 columns of
 // f1 * f2 * w elements, w = 2 * max(nbg_r, nbg_s) * cap2; region (a, b) owns
 // the chunk [(a * f2 + b) * w, + w).  A matched S element of run j at slot
 // position e writes at chunk + j * cap2 + e (nbg_s * cap2 <= w, so it always
-// fits); every other position of the chunk, the tail past the S runs
-// included, is written (-3, 0, 0) by the kernel itself.  Length, live
-// multiset and hole count equal the reference's; positions inside a chunk
-// differ (the reference writes merged-window order).
+// fits); every other position of the chunk, the tail of w - nbg_s * cap2
+// past the S runs included, is written (-3, 0, 0) by the kernel itself, each
+// once.  Length, live multiset and hole count equal the reference's;
+// positions inside a chunk differ (the reference writes merged-window
+// order).
 //
 // Bounds at the headline size (13,107,200 R + 52,428,800 S keys, default
 // Rho3Params: nbg_r = 4, nbg_s = 16, cap2 = 8,192; H100 HBM 3.35 TB/s),
@@ -40,9 +41,9 @@
 //              payloads): >= 0.08 ms (0.16 ms).  It reads each of them once,
 //              plus 2 x (nbg_r + nbg_s) bound searches a CTA.
 //   K3TWO_MAT  524 MB read and three columns of 151M elements (1.81 GB)
-//              written: >= 0.70 ms; the holes are most of the writes.  Each
-//              table run is staged once per S run of its region (nbg_s =
-//              16 times), which L2 serves.
+//              written: >= 0.70 ms; the holes (half of every region is the
+//              tail) are most of the writes.  It reads what K3TWO with
+//              payloads reads, and writes each position once.
 
 #include <cuda_runtime.h>
 
@@ -70,17 +71,18 @@ int nphj_k3two(const int* tk, const int* tp, const int* tcnt, int nbg_r,
 // w = 2 * max(nbg_r, nbg_s) * cap2, every position written.
 int nphj_k3two_mat(const int* tk, const int* tp, const int* tcnt, int nbg_r,
                    const int* sk, const int* sp, const int* scnt, int nbg_s,
-                   int f1, int f2, int cap2, int inv, int* ok, int* orp,
-                   int* osp, unsigned long long* matches,
-                   unsigned int* checksum, void* stream) {
+                   int f1, int f2, int cap2, int P, int inv, int* ok,
+                   int* orp, int* osp, unsigned long long* matches,
+                   unsigned int* checksum, unsigned long long* halvings,
+                   void* stream) {
   const Runs table{tk, tp, tcnt, nbg_r};
   const Runs probe{sk, sp, scnt, nbg_s};
   const int chunks = 2 * (nbg_r > nbg_s ? nbg_r : nbg_s);
   const long long w = (long long)chunks * cap2;
-  const Cols out{ok, orp, osp, f2 * w, w, cap2, chunks - nbg_s};
-  return (int)launch_region_join_mat(probe, table, f1, f2, cap2, inv, out,
-                                     matches, checksum,
-                                     (cudaStream_t)stream);
+  const MatOut out{ok, orp, osp, inv, f2 * w, w, cap2, chunks - nbg_s};
+  return (int)launch_subrange_join<false, true>(
+      probe, table, f1, f2, cap2, P, matches, checksum, halvings,
+      (cudaStream_t)stream, out);
 }
 
 }  // extern "C"

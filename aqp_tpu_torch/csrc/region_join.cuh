@@ -10,14 +10,14 @@
 // is exact in any order.
 //
 // K3 and K3M probe and search the same array (RHO's union of R and S, R
-// and S interleaved in each run).  K3TWO and K3TWO_MAT probe S's slots and
-// search the table's, two arrays with their own run counts, so the
-// persistent table is read where it lies.
+// and S interleaved in each run: SAME).  K3TWO and K3TWO_MAT probe S's
+// slots and search the table's, two arrays with their own run counts, so
+// the persistent table is read where it lies.
 //
-// K3, K3M and K3TWO: subrange_join_kernel, one CTA per (region, key
-//   sub-range).  A region at the headline holds ~22,800 R and ~91,000 S
-//   elements in 16 runs; the CTA owns a key sub-range of all of them
-//   (subrange.cuh: bounds at even keys, pieces, merge).
+// All four are subrange_join_kernel, one CTA per (region, key sub-range).
+// A region at the headline holds ~22,800 R and ~91,000 S elements in 16
+// (K3) or 4 + 16 (K3TWO) runs; the CTA owns a key sub-range of all of them
+// (subrange.cuh: bounds at even keys, pieces, merge).
 //   - R side.  The CTA reads its piece of every table run, run after run
 //     as one virtual array cut into one stretch a warp (coalesced,
 //     SR_ITEMS loads a lane in flight), keeps the even keys that differ
@@ -40,25 +40,21 @@
 //     keys (about one).  K3 reads a run's piece three times, the two R
 //     sweeps and the S pass (the last two from L1 or L2); K3TWO reads the
 //     table's runs twice and S's once.
-//   - K3M (MAT) writes its columns from the S pass: the output has K2's
-//     layout, so every element of the piece, R or S, writes its own
-//     position once: a matched S element (((k >> 1) * inv) mod 2^30, R
-//     payload, S payload), every other element (-3, 0, 0), a piece that
-//     kept no R included (a halved piece writes once per half, after its
-//     last halving).  The positions no element owns, [count, cap2) of each
-//     slot, are holes split evenly among the region's P CTAs, an empty
-//     region's too.  inv is the salt's inverse mod 2^30, so the first
-//     column is the original key.  No staging buffer and no match mask:
-//     K3M takes what K3 takes.
-//
-// K3TWO_MAT: region_join_mat_kernel, one CTA per (region, probe run j): it
-//   stages its probe slot in shared memory, stages each table run of the
-//   region in turn, and each still unmatched S element binary-searches it.
-//   The CTA of (region, j) owns the output positions of its slot (a * sa +
-//   b * sb + j * sj, + cap2): a matched S element writes as K3M's, every
-//   other position gets (-3, 0, 0).  `tail` more chunks of cap2 per region,
-//   after the probe runs' slots, are holes too; the CTA of run j writes the
-//   chunks j, j + nbg, ... of them.
+//   - MAT (K3M, K3TWO_MAT) writes three columns from the S pass: every
+//     probe element of the piece writes its own output position once, a
+//     matched S element (((k >> 1) * inv) mod 2^30, R payload, S payload),
+//     every other element (-3, 0, 0), a piece that kept no R, or whose
+//     table runs hold nothing in its range, included (a halved piece
+//     writes once per half, after its last halving).  inv is the salt's
+//     inverse mod 2^30, so the first column is the original key.  Probe
+//     run j's slot position e of region (a, b) lies at a * sa + b * sb +
+//     j * sj + e (MatOut): K2's layout for K3M, whose probe runs hold R
+//     too; for K3TWO_MAT nphj's region chunks of w elements, S run j at
+//     chunk + j * cap2, and `tail` more chunks of cap2 after the S runs.
+//     The positions no element owns, [count, cap2) of each probe slot and
+//     the tail's chunks, are holes split evenly among the region's P CTAs,
+//     before an empty region's CTAs leave.  No staging buffer and no match
+//     mask: the MAT kernels take what K3 and K3TWO take.
 
 #pragma once
 
@@ -68,12 +64,16 @@ namespace {
 
 constexpr int SR_DIR = 4096;   // directory buckets, <= SR_BUF - 1
 
-// K3M's output columns, at K2's layout (k null: no columns)
+// The MAT kernels' output columns (k null: no columns).  Probe run j's
+// slot position e of region (a, b) is written at a * sa + b * sb + j * sj
+// + e; `tail` chunks of cap2 holes follow the probe runs' (j = nbg, ...).
 struct MatOut {
   int* k;
   int* rp;
   int* sp;
   int inv;   // the salt's inverse mod 2^30
+  long long sa, sb, sj;
+  int tail;
 };
 
 // Shared memory of the sub-range join: the ping-pong R buffers (keys, and
@@ -93,7 +93,7 @@ __global__ void __launch_bounds__(SR_THREADS, SR_MIN_CTAS)
                          unsigned long long* __restrict__ matches,
                          unsigned int* __restrict__ checksum,
                          unsigned long long* __restrict__ halvings) {
-  static_assert(!MAT || (PAY && SAME), "K3M: one array, with payloads");
+  static_assert(!MAT || PAY, "the MAT columns need the payloads");
   extern __shared__ int sm_sub[];
   // R buffer `src` (0 or 1): keys at sm_sub + src * SR_BUF, payloads (PAY
   // only) at sm_sub + (2 + src) * SR_BUF
@@ -138,18 +138,22 @@ __global__ void __launch_bounds__(SR_THREADS, SR_MIN_CTAS)
       atomicMax(&s_kmax, keys[c - 1]);
     }
   }
+  // MAT: where probe run j's slot position e of this region is written
+  auto out_at = [&](unsigned j, unsigned e) {
+    return (size_t)a * out.sa + (size_t)b * out.sb + j * (size_t)out.sj + e;
+  };
   if constexpr (MAT) {
-    // the holes no element owns, [count, cap2) of each slot: this CTA
-    // writes its P-th share of each slot's, a warp a slot
-    for (int j = warp; j < nt; j += SR_WARPS) {
-      const size_t s = ((size_t)a * nt + j) * f2 + b;
-      const int c = table.cnt[s];
+    // the holes no element owns, [count, cap2) of each probe slot and the
+    // tail's chunks: this CTA writes its P-th share of each, a warp a slot
+    for (int j = warp; j < np + out.tail; j += SR_WARPS) {
+      const int c = j < np ? probe.cnt[((size_t)a * np + j) * f2 + b] : 0;
       const int e0 = c + (int)((long long)(cap2 - c) * p / P);
       const int e1 = c + (int)((long long)(cap2 - c) * (p + 1) / P);
       for (int e = e0 + lane; e < e1; e += 32) {
-        out.k[s * cap2 + e] = -3;
-        out.rp[s * cap2 + e] = 0;
-        out.sp[s * cap2 + e] = 0;
+        const size_t o = out_at(j, e);
+        out.k[o] = -3;
+        out.rp[o] = 0;
+        out.sp[o] = 0;
       }
     }
   }
@@ -181,7 +185,8 @@ __global__ void __launch_bounds__(SR_THREADS, SR_MIN_CTAS)
       __syncthreads();
       const int vt = t_off[nt];
       const int vp = p_off[np];
-      if (vt > 0 && vp > 0) {
+      // MAT: a piece whose table runs hold nothing still writes its S
+      if (vp > 0 && (MAT || vt > 0)) {
         // R pass: the first copy of each even key of each run, compacted
         // into R buffer 0 in run order.  Warp w takes the stretch
         // [w_lo, w_hi) of the runs' virtual array; sweep 0 counts the keys
@@ -304,20 +309,22 @@ __global__ void __launch_bounds__(SR_THREADS, SR_MIN_CTAS)
         }
         __syncthreads();
         // S pass: each S element of the piece looks up its partner; this
-        // thread's positions rise, so its run only moves on.  K3M: every
-        // element of the piece writes its own position, R or S, even where
-        // the piece kept no R
+        // thread's positions rise, so its run only moves on.  MAT: every
+        // element of the piece writes its own position, even where the
+        // piece kept no R
         int run = 0;
         int r_off = 0, r_next = p_off[1], r_lo = p_lo[0];
         for (int c0 = 0; (MAT || kept > 0) && c0 < vp; c0 += SR_CHUNK) {
           int key[SR_ITEMS];
-          unsigned at[SR_ITEMS];   // element offsets from p_base
-          unsigned hole = 0;       // K3M: bit q, item q writes a hole
+          // where each item lies: its element offset from p_base, or with
+          // MAT its run and slot position, run << 16 | e (cap2 <= 2^15;
+          // ~0: no element, nothing written)
+          unsigned at[SR_ITEMS];
 #pragma unroll
           for (int q = 0; q < SR_ITEMS; ++q) {
             const int x = c0 + q * SR_THREADS + tid;
             key[q] = 0;   // even: never looked up, never written
-            at[q] = 0;
+            at[q] = MAT ? ~0u : 0u;
             if (x < vp) {
               while (x >= r_next) {
                 ++run;
@@ -325,13 +332,15 @@ __global__ void __launch_bounds__(SR_THREADS, SR_MIN_CTAS)
                 r_next = p_off[run + 1];
                 r_lo = p_lo[run];
               }
-              at[q] = run * run_stride + r_lo + x - r_off;
-              key[q] = __ldg(probe.k + p_base + at[q]);
-              if (MAT) hole |= 1u << q;
+              const unsigned e = r_lo + x - r_off;
+              key[q] = __ldg(probe.k + p_base + run * run_stride + e);
+              at[q] = MAT ? (unsigned)run << 16 | e : run * run_stride + e;
             }
           }
 #pragma unroll
           for (int q = 0; q < SR_ITEMS; ++q) {
+            // MAT: what item q writes, a hole unless it matches
+            int w_k = -3, w_rp = 0, w_sp = 0;
             if ((key[q] & 1) && (!MAT || kept > 0)) {
               const int want = key[q] - 1;
               const int bw = (int)((unsigned)(want - a32) >> sh);
@@ -344,25 +353,24 @@ __global__ void __launch_bounds__(SR_THREADS, SR_MIN_CTAS)
               if (lo < end && rk[pad_at(lo)] == want) {
                 ++my_m;
                 if (PAY) {
+                  const unsigned in_at =
+                      MAT ? (at[q] >> 16) * run_stride + (at[q] & 0xFFFFu)
+                          : at[q];
                   const int r_pay = rp[pad_at(lo)];
-                  const int s_pay = __ldg(probe.p + p_base + at[q]);
+                  const int s_pay = __ldg(probe.p + p_base + in_at);
                   my_c += (unsigned)r_pay + (unsigned)s_pay;
-                  if constexpr (MAT) {
-                    const size_t o = p_base + at[q];
-                    out.k[o] = (int)(((unsigned)(key[q] >> 1) *
-                                      (unsigned)out.inv) & 0x3FFFFFFFu);
-                    out.rp[o] = r_pay;
-                    out.sp[o] = s_pay;
-                    hole &= ~(1u << q);
-                  }
+                  w_k = (int)(((unsigned)(key[q] >> 1) * (unsigned)out.inv) &
+                              0x3FFFFFFFu);
+                  w_rp = r_pay;
+                  w_sp = s_pay;
                 }
               }
             }
-            if (MAT && ((hole >> q) & 1u)) {
-              const size_t o = p_base + at[q];
-              out.k[o] = -3;
-              out.rp[o] = 0;
-              out.sp[o] = 0;
+            if (MAT && at[q] != ~0u) {
+              const size_t o = out_at(at[q] >> 16, at[q] & 0xFFFFu);
+              out.k[o] = w_k;
+              out.rp[o] = w_rp;
+              out.sp[o] = w_sp;
             }
           }
         }
@@ -388,14 +396,13 @@ __global__ void __launch_bounds__(SR_THREADS, SR_MIN_CTAS)
   }
 }
 
-// Largest fine-slot capacity the region joins take (K3TWO_MAT's per-thread
-// match mask: RJ_THREADS * RJ_MAX_PER_THREAD).
-constexpr int RJ_THREADS = 512;
-constexpr int RJ_MAX_PER_THREAD = 64;
-constexpr int RJ_MAX_CAP = RJ_THREADS * RJ_MAX_PER_THREAD;
+// Largest fine-slot capacity the region joins take: the MAT S pass keeps
+// an element's slot position in the low 16 bits of one word, beside its
+// run (K3 and K3TWO are held to the same limit).
+constexpr int SR_MAX_CAP = 1 << 15;
 
 // K3 (SAME: probe and table are one array) or K3TWO: P key sub-ranges a
-// region; payloads on both sides or neither.  MAT (K3M, SAME with
+// region; payloads on both sides or neither.  MAT (K3M, K3TWO_MAT; with
 // payloads): and the columns of `out`, every position written.
 template <bool SAME, bool MAT = false>
 cudaError_t launch_subrange_join(Runs probe, Runs table, int f1, int f2,
@@ -404,18 +411,19 @@ cudaError_t launch_subrange_join(Runs probe, Runs table, int f1, int f2,
                                  unsigned int* checksum,
                                  unsigned long long* halvings,
                                  cudaStream_t st, MatOut out = MatOut{}) {
-  static_assert(!MAT || SAME, "K3M probes its own runs");
   const bool pay = table.p != nullptr;
   if ((probe.p == nullptr) == pay || f1 < 1 || f2 < 1 || P < 1 || cap2 < 1 ||
-      cap2 > RJ_MAX_CAP || table.nbg < 0 || table.nbg > SR_RCAP ||
+      cap2 > SR_MAX_CAP || table.nbg < 0 || table.nbg > SR_RCAP ||
       probe.nbg < 0 || (long long)f1 * f2 * P > INT_MAX ||
       (long long)table.nbg * f2 * cap2 > INT_MAX ||
       (long long)probe.nbg * f2 * cap2 > INT_MAX ||
       (MAT && (!pay || out.k == nullptr || out.rp == nullptr ||
-               out.sp == nullptr)))
+               out.sp == nullptr || probe.nbg > 0xFFFF || out.tail < 0)))
     return cudaErrorInvalidValue;
   const long long grid = (long long)f1 * f2 * P;
-  if (table.nbg == 0 || probe.nbg == 0) return cudaSuccess;
+  // without S or a table nothing matches; the MAT columns still hold holes
+  if (MAT ? probe.nbg + out.tail == 0 : table.nbg == 0 || probe.nbg == 0)
+    return cudaSuccess;
   const int smem = (int)subrange_smem(pay, SAME, table.nbg, probe.nbg);
   cudaError_t err;
 #define RJ_SUB(PAY)                                                        \
@@ -434,136 +442,6 @@ cudaError_t launch_subrange_join(Runs probe, Runs table, int f1, int f2,
     RJ_SUB(false);
   }
 #undef RJ_SUB
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// K3TWO_MAT: one CTA per (region, probe run)
-
-struct Cols {  // materialized columns
-  int* k;
-  int* rp;
-  int* sp;
-  long long sa, sb, sj;  // element offsets of region (a, b) and probe run j
-  int tail;              // hole chunks of cap2 per region after the runs
-};
-
-__global__ void __launch_bounds__(RJ_THREADS) region_join_mat_kernel(
-    Runs probe, Runs table, int f2, int cap2, int inv, Cols out,
-    unsigned long long* __restrict__ matches,
-    unsigned int* __restrict__ checksum) {
-  extern __shared__ int sm_mat[];
-  int* s_probe = sm_mat;           // probe slot keys
-  int* s_rk = sm_mat + cap2;       // searched run keys
-  int* s_rp = sm_mat + 2 * cap2;   // searched run payloads
-  const int j = blockIdx.x % probe.nbg;
-  const int region = blockIdx.x / probe.nbg;
-  const int a = region / f2;
-  const int b = region % f2;
-  const size_t cnt_j = ((size_t)a * probe.nbg + j) * f2 + b;
-  const int cj = probe.cnt[cnt_j];
-  const size_t off_j = cnt_j * cap2;
-  int has_s = 0;
-  for (int e = threadIdx.x; e < cj; e += blockDim.x) {
-    const int k = probe.k[off_j + e];
-    s_probe[e] = k;
-    has_s |= k & 1;
-  }
-  const int any_s = __syncthreads_or(has_s);
-  const size_t region_out = (size_t)a * out.sa + (size_t)b * out.sb;
-  const size_t out_j = region_out + (size_t)j * out.sj;
-
-  unsigned long long done = 0ull;  // bit t: element threadIdx.x + t*blockDim.x
-  unsigned my_m = 0u;
-  unsigned my_c = 0u;
-  for (int i = 0; any_s && i < table.nbg; ++i) {
-    const size_t cnt_i = ((size_t)a * table.nbg + i) * f2 + b;
-    const int ci = table.cnt[cnt_i];
-    if (ci == 0) continue;
-    const size_t off_i = cnt_i * cap2;
-    int has_r = 0;
-    for (int e = threadIdx.x; e < ci; e += blockDim.x) {
-      const int k = table.k[off_i + e];
-      s_rk[e] = k;
-      s_rp[e] = table.p[off_i + e];
-      has_r |= !(k & 1);
-    }
-    if (__syncthreads_or(has_r)) {
-      int t = 0;
-      for (int e = threadIdx.x; e < cj; e += blockDim.x, ++t) {
-        if ((done >> t) & 1ull) continue;
-        const int k = s_probe[e];
-        if (!(k & 1)) continue;
-        const int want = k - 1;
-        int lo = 0;
-        int hi = ci;
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          if (s_rk[mid] < want) lo = mid + 1; else hi = mid;
-        }
-        if (lo < ci && s_rk[lo] == want) {
-          done |= 1ull << t;
-          ++my_m;
-          const int rp = s_rp[lo];
-          const int sp = probe.p[off_j + e];
-          my_c += (unsigned)rp + (unsigned)sp;
-          out.k[out_j + e] =
-              (int)(((unsigned)(k >> 1) * (unsigned)inv) & 0x3FFFFFFFu);
-          out.rp[out_j + e] = rp;
-          out.sp[out_j + e] = sp;
-        }
-      }
-    }
-    __syncthreads();  // the next run overwrites s_rk / s_rp
-  }
-  // holes: every position of the slot that no match wrote
-  int t = 0;
-  for (int e = threadIdx.x; e < cap2; e += blockDim.x, ++t) {
-    if (e < cj && ((done >> t) & 1ull)) continue;
-    out.k[out_j + e] = -3;
-    out.rp[out_j + e] = 0;
-    out.sp[out_j + e] = 0;
-  }
-  for (int q = probe.nbg + j; q < probe.nbg + out.tail; q += probe.nbg) {
-    const size_t o = region_out + (size_t)q * out.sj;
-    for (int e = threadIdx.x; e < cap2; e += blockDim.x) {
-      out.k[o + e] = -3;
-      out.rp[o + e] = 0;
-      out.sp[o + e] = 0;
-    }
-  }
-  my_m = warp_sum(my_m);
-  my_c = warp_sum(my_c);
-  if ((threadIdx.x & 31) == 0) {
-    if (my_m) atomicAdd(matches, (unsigned long long)my_m);
-    if (my_c) atomicAdd(checksum, my_c);
-  }
-}
-
-// Shared memory K3TWO_MAT's region join needs for a fine-slot capacity of
-// cap2.
-inline long long region_join_mat_smem(int cap2) {
-  return (long long)cap2 * sizeof(int) * 3;
-}
-
-// The materializing region join of probe's slots against table's, with
-// payloads on both sides, into the columns of `out`.
-inline cudaError_t launch_region_join_mat(Runs probe, Runs table, int f1,
-                                          int f2, int cap2, int inv, Cols out,
-                                          unsigned long long* matches,
-                                          unsigned int* checksum,
-                                          cudaStream_t st) {
-  if (probe.p == nullptr || table.p == nullptr || cap2 > RJ_MAX_CAP)
-    return cudaErrorInvalidValue;
-  const size_t smem = (size_t)region_join_mat_smem(cap2);
-  cudaError_t err = cudaFuncSetAttribute(
-      region_join_mat_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  const long long grid = (long long)f1 * f2 * probe.nbg;
-  if (grid > 0)
-    region_join_mat_kernel<<<(unsigned)grid, RJ_THREADS, smem, st>>>(
-        probe, table, f2, cap2, inv, out, matches, checksum);
   return cudaGetLastError();
 }
 

@@ -1014,13 +1014,9 @@ int rho3_k2(const int* k1, const int* p1, const int* cnt1, int f1, int group,
                                      ovf, st));
 }
 
-// Shared memory K3TWO_MAT needs for a fine-slot capacity of cap2 (K3M's
-// does not grow with cap2).
-long long rho3_k3m_smem(int cap2) { return region_join_mat_smem(cap2); }
-
-// Largest fine-slot capacity K3, K3M, K3TWO and K3TWO_MAT take (K3TWO_MAT's
-// per-thread match mask).
-int rho3_k3_max_cap() { return RJ_MAX_CAP; }
+// Largest fine-slot capacity K3, K3M, K3TWO and K3TWO_MAT take (the MAT
+// S pass's 16-bit slot positions).
+int rho3_k3_max_cap() { return SR_MAX_CAP; }
 
 // K3: K2's fine slots -> *matches, *checksum, with P key sub-ranges a
 // region; adds each halving of a sub-range to *halvings (all accumulated;
@@ -1044,9 +1040,11 @@ int rho3_k3m(const int* k2, const int* p2, const int* cnt2, int f1, int nbg,
              unsigned long long* matches, unsigned int* checksum,
              unsigned long long* halvings, void* stream) {
   const Runs runs{k2, p2, cnt2, nbg};
+  // K2's layout: run j's slot of region (a, b) at ((a * nbg + j) * f2 + b)
+  const long long sj = (long long)f2 * cap2;
   return (int)launch_subrange_join<true, true>(
       runs, runs, f1, f2, cap2, P, matches, checksum, halvings,
-      (cudaStream_t)stream, MatOut{ok, orp, osp, inv});
+      (cudaStream_t)stream, MatOut{ok, orp, osp, inv, nbg * sj, cap2, sj, 0});
 }
 
 }  // extern "C"

@@ -61,7 +61,6 @@ SIGNATURES = {
                 _I),
     "rho3_max_slot": ([_I], _I),
     "rho3_max_group": ([], _I),
-    "rho3_k3m_smem": ([_I], _LL),
     "rho3_k3_max_cap": ([], _I),
     "rho3_k3": ([_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P], _I),
     "rho3_k3m": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
@@ -76,8 +75,8 @@ SIGNATURES = {
                        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P], _I),
     "nphj_k3two": ([_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                     _P, _P], _I),
-    "nphj_k3two_mat": ([_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P,
-                        _P, _P, _P, _P, _P], _I),
+    "nphj_k3two_mat": ([_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                        _P, _P, _P, _P, _P, _P, _P], _I),
     "rstats_max_h": ([], _I),
     "rstats": ([_P, _P, _LL, _P, _I, _P, _P, _P], _I),
     "sort_blocks": ([_P, _P, _LL, _I, _P, _P, _P, _P], _I),

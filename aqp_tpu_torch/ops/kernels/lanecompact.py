@@ -140,7 +140,8 @@ def _compact_windows(col, payloads, lo: int, hi: int, w: int,
                      with_ids: bool = False, with_values: bool = False,
                      dict_tables=None):
     """Compact every window of w*128 elements of `col` (int32, or uint8
-    read as bytes) by lo <= x <= hi.
+    read as bytes; any contiguous 1-d column, a view that starts off a
+    16-byte boundary included, read where it lies) by lo <= x <= hi.
 
     The outputs, in order: the kept elements' global row ids (with_ids;
     fill PAD_S_INPUT), zero to two int32 payload arrays of col's length

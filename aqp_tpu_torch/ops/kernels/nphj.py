@@ -179,7 +179,7 @@ def k3two(tk2, tp2, tcnt, sk2, sp2, scnt):
     f1, nbg_r, nbg_s, f2, cap2 = _check_slots(tk2, tp2, tcnt, sk2, sp2,
                                               scnt, dev)
     lib = build.load()
-    check_region_cap(lib, cap2, "K3TWO", materialize=False)
+    check_region_cap(lib, cap2, "K3TWO")
     matches = torch.zeros((), dtype=torch.int64, device=dev)
     checksum = torch.zeros((), dtype=torch.int32, device=dev)
     err = lib.nphj_k3two(ptr(tk2), ptr(tp2), ptr(tcnt), nbg_r, ptr(sk2),
@@ -193,7 +193,8 @@ def k3two(tk2, tp2, tcnt, sk2, sp2, scnt):
 
 
 def k3two_mat(tk2, tp2, tcnt, sk2, sp2, scnt, inv: int):
-    """K3TWO_MAT: K3TWO with materialized columns (see k3two_mat_plain)."""
+    """K3TWO_MAT: K3TWO with materialized columns (see k3two_mat_plain), on
+    K3TWO's sub-ranges; adds to the device's halving counter as K3TWO."""
     if not on_cuda(sk2):
         return k3two_mat_plain(tk2, tp2, tcnt, sk2, sp2, scnt, inv)
     if tp2 is None or sp2 is None:
@@ -202,7 +203,7 @@ def k3two_mat(tk2, tp2, tcnt, sk2, sp2, scnt, inv: int):
     f1, nbg_r, nbg_s, f2, cap2 = _check_slots(tk2, tp2, tcnt, sk2, sp2,
                                               scnt, dev)
     lib = build.load()
-    check_region_cap(lib, cap2, "K3TWO_MAT", materialize=True)
+    check_region_cap(lib, cap2, "K3TWO_MAT")
     n = f1 * f2 * mat_chunk(nbg_r, nbg_s, cap2)
     ok = torch.empty((n,), dtype=torch.int32, device=dev)
     orp = torch.empty_like(ok)
@@ -210,9 +211,10 @@ def k3two_mat(tk2, tp2, tcnt, sk2, sp2, scnt, inv: int):
     matches = torch.zeros((), dtype=torch.int64, device=dev)
     checksum = torch.zeros((), dtype=torch.int32, device=dev)
     err = lib.nphj_k3two_mat(ptr(tk2), ptr(tp2), ptr(tcnt), nbg_r, ptr(sk2),
-                             ptr(sp2), ptr(scnt), nbg_s, f1, f2, cap2, inv,
-                             ptr(ok), ptr(orp), ptr(osp), ptr(matches),
-                             ptr(checksum), stream(dev))
+                             ptr(sp2), ptr(scnt), nbg_s, f1, f2, cap2,
+                             subranges(nbg_r + nbg_s, cap2), inv, ptr(ok),
+                             ptr(orp), ptr(osp), ptr(matches), ptr(checksum),
+                             ptr(halving_counter(dev)), stream(dev))
     build.check(lib, err, "nphj K3TWO_MAT")
     LAUNCHES["K3TWO_MAT"] += 1
     return matches, checksum.long() & _U32, ok, orp, osp

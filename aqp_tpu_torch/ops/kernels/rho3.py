@@ -369,17 +369,17 @@ def k2(k1_keys, p1, cnt1, prm: Rho3Params, scale: float):
     return out_k, out_p, cnt, ovf
 
 
-_SMEM_LIMIT = 232448  # bytes of shared memory one CTA can have on sm_90
-
 # Fine-slot elements (of every run a region's CTAs read) one CTA of K3's,
-# K3M's or K3TWO's sub-range join, or of K3AGG's sub-range aggregate,
-# covers: the P of a region is its runs' capacity over this.  At the headline K3 takes P = 8 sub-ranges (~2,850 R keys a
-# CTA) and K3TWO P = 10 (~2,280); fewer, larger CTAs were faster there.
+# K3M's, K3TWO's or K3TWO_MAT's sub-range join, or of K3AGG's sub-range
+# aggregate, covers: the P of a region is its runs' capacity over this.
+# At the headline K3 takes P = 8 sub-ranges (~2,850 R keys a CTA) and
+# K3TWO P = 10 (~2,280); fewer, larger CTAs were faster there.
 SUBRANGE_ELEMS = 16384
 
 # device -> the count of sub-ranges the region joins halved (their R did not
 # fit one CTA) and of pieces K3AGG halved (their elements did not),
-# accumulated over every K3, K3M, K3TWO and K3AGG launch on the device
+# accumulated over every K3, K3M, K3TWO, K3TWO_MAT and K3AGG launch on the
+# device
 _HALVINGS: dict = {}
 
 
@@ -390,7 +390,8 @@ def subranges(runs: int, cap2: int) -> int:
 
 def halving_counter(device) -> torch.Tensor:
     """The 0-dim int64 count of halved sub-ranges (pieces) that K3, K3M,
-    K3TWO and K3AGG add to on `device`; zero it to start a count."""
+    K3TWO, K3TWO_MAT and K3AGG add to on `device`; zero it to start a
+    count."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -399,18 +400,13 @@ def halving_counter(device) -> torch.Tensor:
     return _HALVINGS[device]
 
 
-def check_region_cap(lib, cap2: int, what: str, materialize: bool) -> None:
-    """Raise unless the region joins (csrc/region_join.cuh) take fine slots
-    of cap2 elements: K3, K3M and K3TWO up to rho3_k3_max_cap() (their
-    shared memory does not grow with cap2), K3TWO_MAT (materialize) also
-    within a CTA's shared memory (rho3_k3m_smem, which sizes the
-    per-(region, run) kernel K3TWO_MAT alone runs)."""
+def check_region_cap(lib, cap2: int, what: str) -> None:
+    """Raise unless the region joins (csrc/region_join.cuh: K3, K3M, K3TWO
+    and K3TWO_MAT) take fine slots of cap2 elements, up to
+    rho3_k3_max_cap() (their shared memory does not grow with cap2)."""
     if cap2 > lib.rho3_k3_max_cap():
         raise ValueError(f"fine slots of {cap2} exceed {what}'s "
                          f"{lib.rho3_k3_max_cap()}")
-    if materialize and lib.rho3_k3m_smem(cap2) > _SMEM_LIMIT:
-        raise ValueError(f"fine slots of {cap2} need more shared memory "
-                         "than a CTA has")
 
 
 def k3(k2_keys, p2, cnt2):
@@ -423,7 +419,7 @@ def k3(k2_keys, p2, cnt2):
     need(p2, "p2", (f1, nbg, f2, cap2), dev)
     need(cnt2, "cnt2", (f1, nbg, f2), dev)
     lib = build.load()
-    check_region_cap(lib, cap2, "K3", materialize=False)
+    check_region_cap(lib, cap2, "K3")
     matches = torch.zeros((), dtype=torch.int64, device=dev)
     checksum = torch.zeros((), dtype=torch.int32, device=dev)
     err = lib.rho3_k3(ptr(k2_keys), ptr(p2), ptr(cnt2), f1, nbg, f2, cap2,
@@ -446,7 +442,7 @@ def k3m(k2_keys, p2, cnt2, inv: int):
     need(p2, "p2", (f1, nbg, f2, cap2), dev)
     need(cnt2, "cnt2", (f1, nbg, f2), dev)
     lib = build.load()
-    check_region_cap(lib, cap2, "K3M", materialize=False)
+    check_region_cap(lib, cap2, "K3M")
     n = k2_keys.numel()
     ok = torch.empty((n,), dtype=torch.int32, device=dev)
     orp = torch.empty_like(ok)

@@ -8,9 +8,9 @@ Phases, each printed on one line with its elapsed seconds:
   2. build: every kernel is compiled from aqp_tpu_torch/csrc, one nvcc
      process per source started together, then one link (no PyTorch
      headers, no ninja, no network); each compile runs with -Xptxas -v,
-     and blocksort.cu's, rho3.cu's, nphj.cu's and aggpipe.cu's reports
-     (the sub-range kernels are in the last three) are printed and must
-     show no spill;
+     and blocksort.cu's, rho3.cu's, nphj.cu's, aggpipe.cu's and
+     lanecompact.cu's reports (the sub-range kernels are in rho3.cu,
+     nphj.cu and aggpipe.cu) are printed and must show no spill;
   3. kernels: K1, K2, K3 and K3M against their plain PyTorch versions on
      the card, at the default, a small, the skew tier's residual and the
      no-partition variants' geometries (f1 = 48; f2 = 32 with 4,096-value
@@ -26,9 +26,9 @@ Phases, each printed on one line with its elapsed seconds:
      16,384-value fine slots: their sub-ranges must halve) and on one R
      key 5,000 times (the skew residual's geometry); K3M is held to K3's
      every case with payloads (all three columns, matches and checksum);
-     each K3, K3M, K3TWO and K3AGG check prints the sub-ranges (pieces) it
-     halved, and a {"halvings"...} line before the kernels line gathers
-     them;
+     each K3, K3M, K3TWO, K3TWO_MAT and K3AGG check prints the sub-ranges
+     (pieces) it halved, and a {"halvings"...} line before the kernels line
+     gathers them;
   4. the slice at full width: run_join("RHO") keys-only and checksummed and
      engine.rho_join_count_fused on |R| = 13,107,200 dense PK keys and
      |S| = 52,428,800 tiled FK keys with seeded random payloads (bench.py's
@@ -56,7 +56,9 @@ Phases, each printed on one line with its elapsed seconds:
      at z = 1.5, and K3 exact on the z = 1.5 residual's fine slots;
   9. scans at full width: the count and sum kernels, the bitvector kernel
      and the window kernel's index, values and dict forms against their
-     plain versions (odd n, unaligned starts, windows cut); then the main
+     plain versions (odd n, unaligned starts, windows cut; B5's forms and
+     the join's key + payload form also on columns 1, 7 and 15 bytes and
+     one int32 element past a 16-byte boundary); then the main
      path through the user's entry points: count, sum and bitvector over the
      reference's 16 GiB scale-up column (2^34 uint8 rows, arange & 255,
      against the closed form), bench.py's 32 count passes over 2^28 rows,
@@ -80,7 +82,10 @@ Phases, each printed on one line with its elapsed seconds:
      payloads at the default, small, PHT_un, PHT_o and skew-residual
      geometries, with empty table runs, more table runs than S runs (its
      sub-ranges must halve), duplicate R keys and one R key 5,000 times),
-     K3TWO_MAT (default and small geometry) and RSTATS
+     K3TWO_MAT (default and small geometry, empty table runs, nbg_r >
+     nbg_s at the default and at tests/test_torch_nphj.py's geometry,
+     duplicate R keys, one R key 5,000 times; its halvings equal K3TWO's
+     and join the {"halvings"...} line) and RSTATS
      (odd lengths, unaligned starts, -1 and repeated candidates) against
      their plain versions; then run_join on phase 4's relations for PHT
      (keys-only and checksummed), PHT_no, PHT_un, PHT_o, NPO_st, NPO_no,
@@ -298,12 +303,15 @@ def kernel_bytes(name, args, out) -> int:
     return real + nbytes(cnt2) + 16
 
 
+INV = rho3._modinv_pow2(rho3.HASH_C)
 PLAIN = {"K1": rho3.k1_plain, "K2": rho3.k2_plain, "K3": rho3.k3_plain,
          "K3M": rho3.k3m_plain, "K3TWO": nphj.k3two_plain,
+         "K3TWO_MAT": lambda *a: nphj.k3two_mat_plain(*a, INV),
          "K3AGG": aggpipe.k3agg_plain}
 KERNEL = {"K1": rho3.k1, "K2": rho3.k2, "K3": rho3.k3, "K3M": rho3.k3m,
-          "K3TWO": nphj.k3two, "K3AGG": aggpipe.k3agg}
-INV = rho3._modinv_pow2(rho3.HASH_C)
+          "K3TWO": nphj.k3two,
+          "K3TWO_MAT": lambda *a: nphj.k3two_mat(*a, INV),
+          "K3AGG": aggpipe.k3agg}
 U32 = 0xFFFFFFFF
 
 
@@ -348,10 +356,11 @@ def kernel_row(name, err, k_ms, p_ms, bound_ms, library_ms=None,
 HALVINGS = {}       # sub-range kernel case -> the pieces it halved
 
 
-def check_subrange(name, label, args) -> int:
-    """K3, K3M, K3TWO or K3AGG equals its plain version exactly on `args`
-    (every output); returns, records and prints the pieces it halved (a
-    region join's R, K3AGG's elements, past one CTA's array)."""
+def check_subrange(name, label, args) -> tuple:
+    """K3, K3M, K3TWO, K3TWO_MAT (the salt's inverse given here) or K3AGG
+    equals its plain version exactly on `args` (every output); records and
+    prints the pieces it halved (a region join's R, K3AGG's elements, past
+    one CTA's array) and returns them with the measured max_abs_err."""
     halved = rho3.halving_counter(DEV)
     halved.zero_()
     got = KERNEL[name](*args)
@@ -363,7 +372,7 @@ def check_subrange(name, label, args) -> int:
     n = int(halved)
     HALVINGS[f"{name} {label}"] = n
     say(f"{name} {label}: exact, {n} sub-ranges halved")
-    return n
+    return n, err
 
 
 def check_kernels(rk, rp, sk, sp, prm, with_payload, label, salt=rho3.HASH_C,
@@ -382,11 +391,11 @@ def check_kernels(rk, rp, sk, sp, prm, with_payload, label, salt=rho3.HASH_C,
         err = max_abs_err(got, want)
         require(err == 0, f"{name} differs from its plain version by {err}"
                 f" ({prm}, payload={with_payload})")
-    halved = check_subrange(
+    halved, _ = check_subrange(
         "K3", f"{label}, {'payload' if with_payload else 'keys-only'}",
         stages["K3"][0])
     if with_payload:
-        m_halved = check_subrange("K3M", label,
+        m_halved, _ = check_subrange("K3M", label,
                                   (*stages["K3"][0], rho3._modinv_pow2(salt)))
         require(m_halved == halved, f"K3M halved {m_halved} sub-ranges, K3 "
                 f"{halved} ({label})")
@@ -704,7 +713,8 @@ def main() -> int:
     _, secs = build.build()
     build.load()
     say(f"build: {secs:.2f} s of nvcc")
-    for source in ("blocksort.cu", "rho3.cu", "nphj.cu", "aggpipe.cu"):
+    for source in ("blocksort.cu", "rho3.cu", "nphj.cu", "aggpipe.cu",
+                   "lanecompact.cu"):
         report = build.ptxas_report(source)
         for line in report:
             print(f"  {line}", flush=True)
@@ -861,8 +871,8 @@ def main() -> int:
         for name in ("K1", "K2", "K3"):
             args, _ = stages[name]
             if name == "K3":
-                check_subrange("K3", f"headline, {mode}", args)
-                err, out = 0, None
+                _, err = check_subrange("K3", f"headline, {mode}", args)
+                out = None
             else:
                 out = KERNEL[name](*args)
                 want = PLAIN[name](*args)
@@ -897,8 +907,7 @@ def main() -> int:
                 rows[name] = row
         if with_payload:   # K3M takes K3's inputs with payloads
             args = (*stages["K3"][0], INV)
-            check_subrange("K3M", "headline", args)
-            err = 0
+            _, err = check_subrange("K3M", "headline", args)
             k_ms = cuda_ms(lambda: rho3.k3m(*args), REPS)
             p_ms = cuda_ms(lambda: rho3.k3m_plain(*args), 1)
             k2k, k2p, cnt2 = args[:3]
@@ -1296,7 +1305,10 @@ def scan_form_args(col, hi, sel_hint, mode, tables):
 def check_scan_kernels(tables) -> None:
     """B7, B8 and B5's scan forms equal their plain versions: odd lengths,
     an unaligned start, empty and clamped ranges; windows cut and not cut,
-    uint8 and int32 columns."""
+    uint8 and int32 columns; B5 (its scan forms and the join's key +
+    payload form) also on columns starting 1, 7 and 15 bytes (uint8) and
+    one element (int32) past a 16-byte boundary, n not a multiple of
+    16."""
     gen = torch.Generator(device=DEV).manual_seed(909)
     base = torch.randint(0, 256, ((1 << 24) + 45,), generator=gen,
                          device=DEV, dtype=torch.uint8)
@@ -1325,6 +1337,36 @@ def check_scan_kernels(tables) -> None:
                 cut = int((got[1].long() > args[6] * 128).sum())
                 require((cut > 0) == (hint == 0.1),
                         f"compact_windows {mode}: {cut} windows cut")
+    # unaligned starts: the window kernel reads a head and a tail of each
+    # window one element at a time, and the whole 16-byte vectors between
+    n = (4 << 20) + 77
+    wide = base[:n + 1].int()
+    for col in (base[1:1 + n], base[7:7 + n], base[15:15 + n], wide[1:]):
+        require(col.data_ptr() % 16 != 0 and n % 16 != 0,
+                "an unaligned column was not unaligned")
+        for hint in (None, 0.1):
+            for mode in ("index", "values", "dict"):
+                args, kw = scan_form_args(col, 180, hint, mode, tables)
+                args = (args[0], args[1], 30) + args[3:]
+                got = lanecompact._compact_windows(*args, **kw)
+                want = lanecompact.compact_windows_plain(*args, **kw)
+                torch.cuda.synchronize()
+                err = max_abs_err([*got[0], got[1]], [*want[0], want[1]])
+                require(err == 0, f"compact_windows {mode} differs from its "
+                        f"plain version by {err} ({col.dtype}, start "
+                        f"{col.data_ptr() % 16} bytes past 16, hint {hint})")
+    key, pay = compaction_inputs(n + 1, 0.9, 304)
+    key, pay = key[1:], pay[1:]
+    for keep_frac in (None, 0.05):
+        args = (key, [key, pay], *KEEP_RANGE, W, (lanecompact.PAD_S_INPUT, 0),
+                lanecompact.out_w_for(W, keep_frac))
+        got = lanecompact._compact_windows(*args)
+        want = lanecompact.compact_windows_plain(*args)
+        torch.cuda.synchronize()
+        err = max_abs_err([*got[0], got[1]], [*want[0], want[1]])
+        require(err == 0, f"compact_windows (key + payload) differs from "
+                f"its plain version by {err} (int32 column one element past "
+                f"16 bytes, keep_frac {keep_frac})")
 
 
 def check_write_mode(mode, col, hi, out, tables) -> None:
@@ -1368,7 +1410,9 @@ def scan_phase() -> dict:
     check_scan_kernels(tables)
     say("scans: count, sum, bitvector and the window kernel's index, values "
         "and dict forms equal their plain versions (odd n, unaligned start, "
-        "clamped and empty ranges; uint8 and int32, windows cut and not)")
+        "clamped and empty ranges; uint8 and int32, windows cut and not; "
+        "B5 also at uint8 starts 1, 7 and 15 bytes and an int32 start 4 "
+        "bytes past a 16-byte boundary, the join's form included)")
     big = byte_column(SCALE_UP_ROWS)
     torch.cuda.synchronize()
     # the main path: every scan mode through the entry points a user calls
@@ -1583,7 +1627,7 @@ def check_k3agg() -> None:
         require(int(args[3]) == 0, f"routing overflowed in the K3AGG check "
                 f"({label})")
         k2, _, cnt2 = args[:3]
-        halved = check_subrange("K3AGG", label, args[:3])
+        halved, _ = check_subrange("K3AGG", label, args[:3])
         if label == "one key fills a region":
             require(bool((cnt2[0, :, 0] == p.cap2).all())
                     and bool((k2[0, :, 0] == 0).all()),
@@ -1743,9 +1787,8 @@ def aggregate_phase(key, spay) -> dict:
         say(f"aggregate step {k}: {v:.3f} ms")
     del ck64, cv64, ek, args64
     # K3AGG alone at the leg's K2 shapes
-    check_subrange("K3AGG", f"{AGG_GROUPS} groups, the leg's shapes",
-                   (k2, v2, cnt2))
-    err = 0
+    _, err = check_subrange("K3AGG", f"{AGG_GROUPS} groups, the leg's "
+                            "shapes", (k2, v2, cnt2))
     k_ms = out["steps_ms"]["K3AGG"]
     p_ms = cuda_ms(lambda: aggpipe.k3agg_plain(k2, v2, cnt2), 1)
     groups = int(blocks[5].long().sum())
@@ -1808,6 +1851,11 @@ def random_pairs(nr, ns, hi, seed, unique_r=True, hit=1.0, repeat=0):
     return rk.int(), rp, sk.int(), sp
 
 
+# tests/test_torch_nphj.py's geometry (its R-more-runs shape below)
+NPHJ_TEST_GEOM = rho3.Rho3Params(block_rows=64, slot_rows=8, f1=16, f2=4,
+                                 kd_slot_rows=16)
+
+
 def check_nphj_kernels() -> None:
     """K3TWO and K3TWO_MAT equal their plain versions exactly."""
     default = rho3.Rho3Params()
@@ -1822,15 +1870,19 @@ def check_nphj_kernels() -> None:
         ("skew residual", skewtier._skew_prm(), 1 << 20, 8 << 20, 1 << 29,
          True, 0.8, False),
         ("empty table runs", default, 2048, 1 << 20, 1 << 29, True, 0.01,
-         False),
+         True),
         ("more table runs than S runs", default, 8 << 20, 1 << 20, 1 << 29,
-         True, 0.8, False),
+         True, 0.8, True),
+        # nbg_r > nbg_s at a small geometry: the chunk's tail is longer
+        # than the S runs
+        ("R-more-runs test geometry", NPHJ_TEST_GEOM, 1 << 18, 4096, 1 << 19,
+         True, 0.5, True),
         ("duplicate R keys", default, 1 << 20, 8 << 20, 1 << 19, False, 0.8,
-         False),
+         True),
         # one R key 5,000 times (past a CTA's 4,096-key array; the
         # skew residual's fine slots hold the copies)
         ("repeated R key", skew, 8 << 20, 1 << 20, 1 << 29, True, 0.8,
-         False),
+         True),
     ]
     for label, prm, nr, ns, hi, unique, hit, mat in cases:
         rk, rp, sk, sp = random_pairs(nr, ns, hi, 1101, unique, hit,
@@ -1839,7 +1891,7 @@ def check_nphj_kernels() -> None:
         for with_payload in (False, True):
             args, ovf = nphj_stage(rk, rp, sk, sp, prm, with_payload)
             require(ovf == 0, f"nphj routing overflowed ({label})")
-            halved = check_subrange(
+            halved, _ = check_subrange(
                 "K3TWO", f"{label}, "
                 f"{'payload' if with_payload else 'keys-only'}", args)
             # 8M table keys over 2 sub-ranges a region: ~6,900 R each
@@ -1847,13 +1899,13 @@ def check_nphj_kernels() -> None:
                     "K3TWO halved no sub-range where a region's R passes "
                     "one CTA's array")
             if with_payload and mat:
-                got = nphj.k3two_mat(*args, INV)
-                want = nphj.k3two_mat_plain(*args, INV)
-                torch.cuda.synchronize()
-                err = max_abs_err(got, want)
-                require(err == 0, f"K3TWO_MAT differs from its plain "
-                        f"version by {err} ({label})")
-                del got, want
+                require(args[0].shape[1] > args[3].shape[1]
+                        or label != "R-more-runs test geometry",
+                        f"nbg_r {args[0].shape[1]} <= nbg_s "
+                        f"{args[3].shape[1]} ({label})")
+                m_halved, _ = check_subrange("K3TWO_MAT", label, args)
+                require(m_halved == halved, f"K3TWO_MAT halved {m_halved} "
+                        f"sub-ranges, K3TWO {halved} ({label})")
             del args
 
 
@@ -2013,11 +2065,13 @@ def nopart_phase(relR, relS) -> dict:
     check_nphj_kernels()
     check_rstats()
     say("nopart kernels: K3TWO (default, small, PHT_un, PHT_o and residual "
-        "geometry; empty table runs, nbg_r > nbg_s (halving), duplicate R "
-        "keys, one R key 5,000 times; "
-        "keys-only and with payloads), K3TWO_MAT (default and small) and "
-        "RSTATS (odd n, unaligned starts, duplicate R, -1 and repeated "
-        "candidates) equal their plain versions")
+        "geometry; empty table runs, nbg_r > nbg_s (halving, and at the "
+        "test geometry), duplicate R keys, one R key 5,000 times; "
+        "keys-only and with payloads), K3TWO_MAT (default, small, empty "
+        "table runs, nbg_r > nbg_s at both, duplicate R keys, one R key "
+        "5,000 times; the same halvings as K3TWO) and RSTATS (odd n, "
+        "unaligned starts, duplicate R, -1 and repeated candidates) equal "
+        "their plain versions")
     zs = create_relation_zipf(NS, NR, 1.5, seed=22222, random_payload=True,
                               device=DEV)
     plan = skewtier.skew_plan(zs.key)     # each call below plans anew
@@ -2085,10 +2139,9 @@ def nopart_phase(relR, relS) -> dict:
         require(ovf == 0, "headline nphj routing overflowed")
         tcnt, scnt = args[2], args[5]
         real = int(tcnt.long().sum() + scnt.long().sum())
-        check_subrange(
+        _, err = check_subrange(
             "K3TWO", f"headline, {'payload' if with_payload else 'keys-only'}",
             args)
-        err = 0
         k_ms = cuda_ms(lambda: nphj.k3two(*args), REPS)
         p_ms = cuda_ms(lambda: nphj.k3two_plain(*args), 1)
         nbytes_ = (real * 4 * (2 if with_payload else 1)
@@ -2105,12 +2158,9 @@ def nopart_phase(relR, relS) -> dict:
             f"{lib_ms:.3f} ms)")
         if with_payload:
             print(json.dumps({"with_payload": row}), flush=True)
-            got = nphj.k3two_mat(*args, INV)
-            err = max_abs_err(got, nphj.k3two_mat_plain(*args, INV))
-            require(err == 0, "K3TWO_MAT differs from its plain version at "
-                    "the headline shape")
-            n_out = got[2].numel()
-            del got
+            _, err = check_subrange("K3TWO_MAT", "headline", args)
+            n_out = args[0].shape[0] * args[0].shape[2] * nphj.mat_chunk(
+                args[0].shape[1], args[3].shape[1], args[0].shape[3])
             k_ms = cuda_ms(lambda: nphj.k3two_mat(*args, INV), REPS)
             p_ms = cuda_ms(lambda: nphj.k3two_mat_plain(*args, INV), 1)
             nbytes_ = real * 8 + nbytes(tcnt, scnt) + 16 + 3 * n_out * 4

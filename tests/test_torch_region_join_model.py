@@ -34,9 +34,16 @@ position of K2's layout: a matched S element ((packed >> 1) * inv mod
 past each slot's count are holes split evenly among the region's P CTAs
 (the q-th CTA writes [c + (cap2 - c) q / P, c + (cap2 - c) (q + 1) / P)
 of a slot of count c), an empty region's too, so every position is written
-exactly once.  The kernel's rcap is 4,096 R keys (SR_RCAP) and its ndir
-4,096 buckets (SR_DIR); the tests also run them scaled down, so that
-pieces halve, down to one key, and buckets hold many keys.
+exactly once.  K3TWO_MAT is K3TWO with K3M's S pass, at nphj's layout:
+region (a, b) owns the chunk [(a * f2 + b) * w, + w), w = 2 * max(nbg_r,
+nbg_s) * cap2, and S run j's slot position e is written at chunk + j *
+cap2 + e; the holes are each S slot's [count, cap2) and the chunk's tail
+past the S runs (w / cap2 - nbg_s more chunks of cap2), split evenly among
+the P CTAs in the same way, and a piece whose table runs hold nothing in
+its range still writes its S elements.  The kernel's rcap is 4,096 R keys
+(SR_RCAP) and its ndir 4,096 buckets (SR_DIR); the tests also run them
+scaled down, so that pieces halve, down to one key, and buckets hold many
+keys.
 """
 
 import numpy as np
@@ -114,10 +121,11 @@ def region_runs(k, p, cnt, a, b):
 def model_region(table, probe, same, P, rcap, ndir, emit=None):
     """One region's (matches, checksum sum, halvings) over its P CTAs.
 
-    emit(i, lo, hit, r_pay), where given (K3M), receives each probe run
-    i's stretch [lo, lo + hit.size) of each piece the S pass reads, a piece
-    that kept no R included: whether each element matched and the
-    answering R payload (0 where it did not)."""
+    emit(i, lo, hit, r_pay), where given (K3M, K3TWO_MAT), receives each
+    probe run i's stretch [lo, lo + hit.size) of each piece the S pass
+    reads, a piece that kept no R, or whose table runs hold nothing in its
+    range, included: whether each element matched and the answering R
+    payload (0 where it did not)."""
     runs = table if same else table + probe
     real = [r[0] for r in runs if r[0].size]
     if not real:
@@ -135,7 +143,9 @@ def model_region(table, probe, same, P, rcap, ndir, emit=None):
                                             for r in probe]
                 vt = sum(h - lo for lo, h in t_pos)
                 vp = sum(h - lo for lo, h in s_pos)
-                if vt > 0 and vp > 0:
+                # MAT (emit): a piece whose table runs hold nothing still
+                # writes its S
+                if vp > 0 and (vt > 0 or emit is not None):
                     subruns = []
                     for (keys, pays), (lo, h) in zip(table, t_pos):
                         kk, pp = keys[lo:h], pays[lo:h]
@@ -611,3 +621,183 @@ def test_k3m_model_on_one_key_repeated_past_the_array():
     k, p, cnt = fill_slots(1, nbg, 1, 1024, contents)
     assert check_k3m(k, p, cnt, P=1, rcap=nbg) >= 5
     assert check_k3m(k, p, cnt, P=3, rcap=nbg, ndir=2) > 0
+
+
+# ---------------------------------------------------------------------------
+# K3TWO_MAT: the materializing S pass at nphj's layout
+
+
+def model_k3two_mat(tk, tp, tcnt, sk, sp, scnt, inv, P, rcap=RCAP,
+                    ndir=NDIR):
+    """K3TWO_MAT from the model: (matches, checksum, key, r_payload,
+    s_payload columns, the writes of each position, halvings)."""
+    f1, nbg_r, f2, cap2 = tk.shape
+    nbg_s = sk.shape[1]
+    w = nphj.mat_chunk(nbg_r, nbg_s, cap2)
+    n = f1 * f2 * w
+    cols = [np.zeros(n, np.int64) for _ in range(3)]
+    writes = np.zeros(n, np.int64)
+
+    def put(q, *vals):
+        for col, val in zip(cols, vals):
+            col[q] = val
+        np.add.at(writes, q, 1)
+
+    m = c = halvings = 0
+    for a in range(f1):
+        for b in range(f2):
+            table = region_runs(tk, tp, tcnt, a, b)
+            probe = region_runs(sk, sp, scnt, a, b)
+            chunk = (a * f2 + b) * w
+
+            def emit(j, lo, hit, r_pay):
+                keys, pays = (x[lo:lo + hit.size] for x in probe[j])
+                orig = ((keys >> 1) * inv) & rho3.HASH_MASK
+                put(chunk + j * cap2 + lo + np.arange(hit.size),
+                    np.where(hit, orig, -3), np.where(hit, r_pay, 0),
+                    np.where(hit, pays, 0))
+
+            rm, rc, rh = model_region(table, probe, False, P, rcap, ndir,
+                                      emit)
+            m, c, halvings = m + rm, c + rc, halvings + rh
+            for part in range(P):     # the holes: S slots' tails, the tail
+                for j in range(w // cap2):
+                    cnt = int(scnt[a, j, b]) if j < nbg_s else 0
+                    e0 = cnt + (cap2 - cnt) * part // P
+                    e1 = cnt + (cap2 - cnt) * (part + 1) // P
+                    put(chunk + j * cap2 + np.arange(e0, e1), -3, 0, 0)
+    return (m, c & U32, *(_i32(col) for col in cols), writes, halvings)
+
+
+def check_k3two_mat(tk, tp, tcnt, sk, sp, scnt, inv=INV, P=None, rcap=RCAP,
+                    ndir=NDIR):
+    """Model == k3two_mat_plain, every column, with every position written
+    once; the same halvings as K3TWO's model.  Returns the halvings."""
+    P = P or rho3.subranges(tk.shape[1] + sk.shape[1], tk.shape[3])
+    m, c, ok, orp, osp, writes, h = model_k3two_mat(tk, tp, tcnt, sk, sp,
+                                                    scnt, inv, P, rcap, ndir)
+    assert (writes == 1).all()
+    want = nphj.k3two_mat_plain(_t(tk), _t(tp), _t(tcnt), _t(sk), _t(sp),
+                                _t(scnt), inv)
+    assert (m, c) == (int(want[0]), int(want[1]))
+    for got, col in zip((ok, orp, osp), want[2:]):
+        np.testing.assert_array_equal(got, col.numpy())
+    assert h == model_join(tk, tp, tcnt, sk, sp, scnt, False, P, rcap,
+                           ndir)[2]
+    return h
+
+
+def two_sides(rng, f1, nbg_r, nbg_s, f2, cap2, n_r, n_s, domain,
+              dup_r=False, hit=0.7):
+    """Table slots of R keys (even) in nbg_r runs and S slots of S keys
+    (odd) in nbg_s runs, each region's keys in its own range; an S key
+    hits an R key of its region with probability `hit`."""
+    tc, sc = {}, {}
+    for a in range(f1):
+        for b in range(f2):
+            base = (a * f2 + b) * domain
+            sig = (rng.integers(0, domain // 2, n_r) if dup_r
+                   else rng.choice(domain, n_r, replace=False))
+            r_keys = 2 * (base + sig)
+            miss = 2 * (base + rng.integers(0, domain, n_s)) + 1
+            s_keys = (np.where(rng.random(n_s) < hit,
+                               rng.choice(r_keys, n_s) + 1, miss)
+                      if n_r else miss)
+            for keys, nbg, out in ((r_keys, nbg_r, tc), (s_keys, nbg_s, sc)):
+                at = rng.integers(0, max(nbg, 1), keys.size)
+                for j in range(nbg):
+                    sel = keys[at == j]
+                    out[(a, j, b)] = (sel, rng.integers(-(1 << 31), 1 << 31,
+                                                        sel.size))
+    return (*fill_slots(f1, nbg_r, f2, cap2, tc),
+            *fill_slots(f1, nbg_s, f2, cap2, sc))
+
+
+# (nbg_r, nbg_s): more S runs (the headline's 4 / 16), more table runs
+# (the tail longer than the S runs), equal counts
+RUN_COUNTS = {"4/16": (4, 16), "6/2": (6, 2), "3/3": (3, 3)}
+
+
+@pytest.mark.parametrize("rcap", [RCAP, 32], ids=["rcap4096", "rcap32"])
+@pytest.mark.parametrize("runs", list(RUN_COUNTS))
+def test_k3two_mat_model_equals_plain(runs, rcap):
+    """K3TWO_MAT's model against k3two_mat_plain at nbg_r < nbg_s,
+    nbg_r > nbg_s and equal counts, unique and duplicate R keys; at rcap
+    32 the pieces halve."""
+    nbg_r, nbg_s = RUN_COUNTS[runs]
+    rng = np.random.default_rng(nbg_r * 10 + nbg_s)
+    for dup_r in (False, True):
+        sides = two_sides(rng, 3, nbg_r, nbg_s, 4, 256, 150, 450, 400,
+                          dup_r=dup_r)
+        tk, tp, tcnt = sides[:3]
+        if dup_r:
+            r = tk[0, :, 0][tk[0, :, 0] != KEY_PAD_INT]
+            assert np.unique(r).size < r.size
+        h = check_k3two_mat(*sides, P=3, rcap=rcap, ndir=rcap // 8)
+        assert (h > 0) == (rcap == 32)
+
+
+@pytest.mark.parametrize("runs", list(RUN_COUNTS))
+def test_k3two_mat_model_writes_holes_where_no_r_or_no_s_is(runs):
+    """An empty region, a region whose table is empty (its S elements are
+    all holes), a region whose S is empty (its chunk is all holes), an
+    empty S slot and pieces whose table runs hold nothing in their range
+    (R and S keys in disjoint halves of a region)."""
+    nbg_r, nbg_s = RUN_COUNTS[runs]
+    rng = np.random.default_rng(20 + nbg_r)
+    tk, tp, tcnt, sk, sp, scnt = two_sides(rng, 3, nbg_r, nbg_s, 4, 256,
+                                           120, 400, 600)
+    tcnt[0, :, 0] = scnt[0, :, 0] = 0     # an empty region
+    tcnt[1, :, 1] = 0                     # no table in a region
+    scnt[2, :, 2] = 0                     # no S in a region
+    scnt[1, 0, 3] = 0                     # an empty S slot
+    # region (2, 0): R in the low half of its keys, S in the high half
+    for j in range(nbg_r):
+        c = int(tcnt[2, j, 0])
+        tk[2, j, 0, :c] = np.sort(tk[2, j, 0, :c] // 2 // 2 * 2)
+    for j in range(nbg_s):
+        c = int(scnt[2, j, 0])
+        sk[2, j, 0, :c] = np.sort((sk[2, j, 0, :c] // 2 + 600) | 1)
+    check_k3two_mat(tk, tp, tcnt, sk, sp, scnt)
+    check_k3two_mat(tk, tp, tcnt, sk, sp, scnt, P=5, rcap=16, ndir=4)
+
+
+@pytest.mark.parametrize("nbg_r,nbg_s", [(0, 3), (3, 0)],
+                         ids=["no table runs", "no S runs"])
+def test_k3two_mat_model_without_runs_on_one_side(nbg_r, nbg_s):
+    """No table runs: every S element is a hole; no S runs: every chunk is
+    all holes (w = 2 * nbg_r * cap2)."""
+    rng = np.random.default_rng(30 + nbg_r)
+    sides = two_sides(rng, 2, nbg_r, nbg_s, 3, 128, 50, 150, 300)
+    check_k3two_mat(*sides)
+    check_k3two_mat(*sides, P=4)
+
+
+def _routed_two(prm, nr, ns, seed):
+    """The table's and S's fine slots as nphj builds and routes them (the
+    plain pipeline), as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    rk = rng.choice(1 << 26, nr, replace=False) + 1
+    sk = np.where(rng.random(ns) < 0.7, rng.choice(rk, ns),
+                  rng.integers(1, 1 << 26, ns))
+    rp, sp = (torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, n)
+                               .astype(np.int32)) for n in (nr, ns))
+    rk, sk = (torch.from_numpy(x.astype(np.int32)) for x in (rk, sk))
+    tk2, tp2, tcnt, t_ovf = nphj.nphj_build(rk, rp, prm)
+    sk2, sp2, scnt, s_ovf = nphj._route_s(sk, sp, prm, rho3.HASH_C, True)
+    assert int(t_ovf) == int(s_ovf) == 0
+    return tuple(x.numpy() for x in (tk2, tp2, tcnt, sk2, sp2, scnt))
+
+
+@pytest.mark.parametrize("nr,ns", [(4096, 1 << 18), (1 << 18, 4096)],
+                         ids=["S-more-runs", "R-more-runs"])
+def test_k3two_mat_model_on_routed_slots(nr, ns):
+    """The model on nphj's own slots (tests/test_torch_nphj.py's geometry,
+    both run orders), at the wrapper's P and with pieces halving."""
+    prm = rho3.Rho3Params(block_rows=64, slot_rows=8, f1=16, f2=4,
+                          kd_slot_rows=16)
+    sides = _routed_two(prm, nr, ns, seed=nr + ns)
+    nbg_r, nbg_s = sides[0].shape[1], sides[3].shape[1]
+    assert (nbg_r < nbg_s) == (nr < ns)
+    check_k3two_mat(*sides)
+    assert check_k3two_mat(*sides, P=2, rcap=32, ndir=8) > 0

@@ -38,8 +38,6 @@ class FakeLib:
                 return 8192 if args[0] == 1 else 16384
             if name == "rho3_max_group":
                 return 1024
-            if name == "rho3_k3m_smem":
-                return args[0] * 4 * 3
             if name == "rstats_max_h":
                 return 1024
             return 0
@@ -115,8 +113,8 @@ def test_each_wrapper_calls_its_launcher_once(lib):
     assert one.shape == (21, 128)
     assert [n for n in lib.calls if n.startswith(("rho3_k", "compact",
                                                   "scatter"))
-            and n not in ("rho3_k3_max_cap", "rho3_k3m_smem",
-                          "rho3_max_slot", "rho3_max_group")] == [
+            and n not in ("rho3_k3_max_cap", "rho3_max_slot",
+                          "rho3_max_group")] == [
         "rho3_k1", "rho3_k2", "rho3_k3", "rho3_k1", "rho3_k2", "rho3_k3",
         "rho3_k3m", "compact_windows", "compact_windows",
         "scatter_segments", "scatter_segments"]
@@ -194,9 +192,8 @@ def test_k3_and_k3two_pass_sub_ranges_and_the_halving_counter(lib):
 
 def test_region_joins_report_fine_slots_past_their_capacity(lib):
     """cap2 up to rho3_k3_max_cap() (32,768) launches K3 and K3TWO, with or
-    without payloads, and K3M (their shared memory does not grow with
-    cap2); past it they raise, and K3TWO_MAT past a CTA's shared memory,
-    before a launch."""
+    without payloads, and K3M and K3TWO_MAT (their shared memory does not
+    grow with cap2); past it they raise before a launch."""
     f1, f2 = 1, 1
     for cap2, ok in ((32768, True), (65536, False)):
         k, cnt = _i32(f1, 1, f2, cap2), _i32(f1, 1, f2)
@@ -211,16 +208,19 @@ def test_region_joins_report_fine_slots_past_their_capacity(lib):
                     nphj.k3two(k, pay, cnt, k, pay, cnt)
         if ok:
             rho3.k3m(k, k, cnt, 1)
+            nphj.k3two_mat(k, k, cnt, k, k, cnt, 1)
         else:
             with pytest.raises(ValueError, match="exceed K3M's 32768"):
                 rho3.k3m(k, k, cnt, 1)
-    k, cnt = _i32(f1, 1, f2, 32768), _i32(f1, 1, f2)
-    with pytest.raises(ValueError, match="shared memory"):
-        nphj.k3two_mat(k, k, cnt, k, k, cnt, 1)
+            with pytest.raises(ValueError, match="exceed K3TWO_MAT's 32768"):
+                nphj.k3two_mat(k, k, cnt, k, k, cnt, 1)
     assert [n for n in lib.calls if n in ("rho3_k3", "nphj_k3two",
                                           "rho3_k3m", "nphj_k3two_mat")] == [
-        "rho3_k3", "nphj_k3two", "rho3_k3", "nphj_k3two", "rho3_k3m"]
-    assert "rho3_k3m_smem" not in lib.calls[:lib.calls.index("rho3_k3m")]
+        "rho3_k3", "nphj_k3two", "rho3_k3", "nphj_k3two", "rho3_k3m",
+        "nphj_k3two_mat"]
+    # the capacity is the only limit the wrappers ask the library for
+    assert set(lib.calls) == {"rho3_k3", "nphj_k3two", "rho3_k3m",
+                              "nphj_k3two_mat", "rho3_k3_max_cap"}
 
 
 def test_scan_and_aggregate_wrappers_call_their_launchers_once(lib):
@@ -297,6 +297,14 @@ def test_nphj_and_rstats_wrappers_call_their_launchers_once(lib):
     m, c, ok, orp, osp = nphj.k3two_mat(tk, tk, tc, sk, sk, sc, 7)
     n = f1 * f2 * 2 * max(nbg_r, nbg_s) * cap2
     assert ok.shape == orp.shape == osp.shape == (n,)
+    # K3TWO_MAT: K3TWO's geometry and sub-ranges, inv, the columns and the
+    # halving counter
+    mat_args = lib.args[lib.calls.index("nphj_k3two_mat")]
+    assert (mat_args[3], mat_args[7]) == (nbg_r, nbg_s)
+    assert mat_args[8:13] == (f1, f2, cap2,
+                              rho3.subranges(nbg_r + nbg_s, cap2), 7)
+    assert mat_args[13:16] == tuple(t.data_ptr() for t in (ok, orp, osp))
+    assert mat_args[18] == rho3.halving_counter("cpu").data_ptr()
     for rp, with_pay in ((_i32(1001), True), (None, False)):
         cnt, pay = rstats.r_cand_stats_kernel(_i32(1001), rp, _i32(64),
                                               with_pay)
