@@ -68,7 +68,8 @@ SIGNATURES = {
     "compact_windows": ([_P, _I, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P,
                          _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
                         _I),
-    "scatter_segments": ([_P, _P, _P, _P, _P, _I, _LL, _LL, _P, _P, _P], _I),
+    "scatter_segments": ([_P, _P, _P, _P, _P, _I, _LL, _LL, _I, _P, _P, _P],
+                         _I),
     "scan_reduce": ([_P, _LL, _I, _I, _I, _P, _P], _I),
     "scan_bitvector": ([_P, _LL, _I, _I, _P, _P], _I),
     "aggpipe_k3agg": ([_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
@@ -78,7 +79,7 @@ SIGNATURES = {
     "nphj_k3two_mat": ([_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                         _P, _P, _P, _P, _P, _P, _P], _I),
     "rstats_max_h": ([], _I),
-    "rstats": ([_P, _P, _LL, _P, _I, _P, _P, _P], _I),
+    "rstats": ([_P, _P, _LL, _P, _I, _P, _P], _I),
     "sort_blocks": ([_P, _P, _LL, _I, _P, _P, _P, _P], _I),
     "sort_hist": ([_P, _P, _LL, _I, _I, _F, _P, _P, _P, _P, _P], _I),
     "sort_tile_plan": ([_P, _P, _LL, _P, _P, _P, _P], _I),

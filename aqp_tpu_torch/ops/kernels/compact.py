@@ -9,13 +9,16 @@ of rows whose bucket is below f, each row bucketed by its leading key
 scale), 0, F - 1), in float32 as the reference computes it).
 
 `scatter_segments` copies `nseg` row segments of a (rows, 128) key array and
-its payload array to destination row offsets of an output pre-filled with
-`fill_key` (and 0 for the payload); `scatter_segments_one` does the same for
-one array.  Segment i copies source rows [soff_i, soff_i + sz_i) to output
-rows [doff_i, doff_i + sz_i); segments must not overlap in the output.  The
-output has `out_rows` rows and, as in the reference, callers keep only the
-first out_rows - 1 (the reference's last row is the trash row its DMA ring
-aims empty segments at; the port writes nothing there).
+its payload array to destination row offsets of the output, and every row
+no segment covers holds `fill_key` (0 in the payload);
+`scatter_segments_one` does the same for one array.  Segment i copies
+source rows [soff_i, soff_i + sz_i) to output rows [doff_i, doff_i + sz_i);
+segments may come in any order and must not overlap in the output.  The
+kernel writes every output row once, fill included, into an uninitialised
+buffer: one launch a call and nothing around it.  The output has
+`out_rows` rows and, as in the reference, callers keep only the first
+out_rows - 1 (the reference's last row is the trash row its DMA ring aims
+empty segments at; the port fills it).
 
 `compact_kp` is the two together: the row-granular compactor of a masked
 (key, payload) column pair, with `_plan` computing each (block, bucket)
@@ -108,6 +111,9 @@ def scatter_segments_plain(arrays, soff, doff, sz, out_rows: int,
     clamped to the source; other rows hold fill_key (array 0) or 0.
     Segments with sz <= 0, or starting outside [0, out_rows), are dropped.
     Returns one (out_rows, 128) array per input array."""
+    if soff.numel() == 0:                   # no segment: all fill
+        return [x.new_full((out_rows, x.shape[1]), fill_key if i == 0 else 0)
+                for i, x in enumerate(arrays)]
     src_rows = arrays[0].shape[0]
     dev = arrays[0].device
     soff, doff, sz = soff.long(), doff.long(), sz.long()
@@ -145,18 +151,16 @@ def _launch(arrays, soff, doff, sz, nseg: int, out_rows: int,
         need(t, what, (nseg,), dev)
     if rows == 0 and nseg:
         raise ValueError("segments of an empty source")
-    outs = [torch.full((out_rows, LANES), fill_key, dtype=torch.int32,
-                       device=dev)]
-    if len(arrays) == 2:
-        outs.append(torch.zeros((out_rows, LANES), dtype=torch.int32,
-                                device=dev))
-    for t in (*arrays, *outs):
-        if t.data_ptr() % 16:
+    for x in arrays:
+        if x.data_ptr() % 16:
             raise ValueError("the segment scatter needs 16-byte aligned rows")
+    # the kernel writes every output row, the fill included
+    outs = [torch.empty((out_rows, LANES), dtype=torch.int32, device=dev)
+            for _ in arrays]
     lib = build.load()
     err = lib.scatter_segments(
         ptr(arrays[0]), ptr(arrays[1]) if len(arrays) == 2 else None,
-        ptr(soff), ptr(doff), ptr(sz), nseg, rows, out_rows,
+        ptr(soff), ptr(doff), ptr(sz), nseg, rows, out_rows, fill_key,
         ptr(outs[0]), ptr(outs[1]) if len(outs) == 2 else None,
         stream(dev))
     build.check(lib, err, name)

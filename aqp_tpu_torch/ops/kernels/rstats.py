@@ -7,15 +7,20 @@ nothing; repeated slots each get the full count.  Exact for any R, where
 the reference's MXU form is exact only for unique R keys.
 
 `r_cand_stats_kernel` sends a CPU tensor to `r_cand_stats_plain` and a CUDA
-tensor to the hand-written kernel in csrc/rstats.cu (one pass over R, the
-sorted candidates binary-searched in shared memory); there is no fallback
-from one to the other.  `LAUNCHES` counts the kernel launches.
+tensor to the hand-written kernel in csrc/rstats.cu (one pass over R's
+keys, each looked up in a hash table of the candidates in shared memory,
+a payload read only where a key hits); there is no fallback from one to
+the other.  A call on the card is one (2, h) int64 output, which the
+launcher zeroes (one memset), and one launch; the two results are views of
+it.  `LAUNCHES` counts the kernel launches.
 
 `Candidates` is the candidate lookup the plain version and the skew tier's
 split pass share.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -71,6 +76,13 @@ def r_cand_stats_plain(rk, rp, hk, with_pay: bool = True):
     return cand.to_slots(cnt), cand.to_slots(pay) & _U32
 
 
+@functools.cache
+def max_candidates() -> int:
+    """Most candidate slots RSTATS takes (the library's RSTATS_MAX_H),
+    asked once a process."""
+    return build.load().rstats_max_h()
+
+
 def r_cand_stats_kernel(rk, rp, hk, with_pay: bool = True):
     """RSTATS (see r_cand_stats_plain): int32 rk (n,), rp (n,) when
     with_pay, hk (h,)."""
@@ -86,13 +98,15 @@ def r_cand_stats_kernel(rk, rp, hk, with_pay: bool = True):
     h = hk.numel()
     need(hk, "hk", (h,), dev)
     lib = build.load()
-    if not 1 <= h <= lib.rstats_max_h():
+    if not 1 <= h <= max_candidates():
         raise ValueError(f"{h} candidates; RSTATS takes 1 to "
-                         f"{lib.rstats_max_h()}")
-    cnt = torch.zeros((h,), dtype=torch.int64, device=dev)
-    pay = torch.zeros((h,), dtype=torch.int32, device=dev)
+                         f"{max_candidates()}")
+    # row 0 the counts, row 1 the payload sums; the launcher zeroes it and
+    # the kernel adds into the low word of each sum, which wraps mod 2^32
+    # and leaves the high word 0
+    out = torch.empty((2, h), dtype=torch.int64, device=dev)
     err = lib.rstats(ptr(rk), ptr(rp) if with_pay else None, n, ptr(hk), h,
-                     ptr(cnt), ptr(pay), stream(dev))
+                     ptr(out), stream(dev))
     build.check(lib, err, "RSTATS")
     LAUNCHES["RSTATS"] += 1
-    return cnt, pay.long() & _U32
+    return out.unbind()

@@ -8,9 +8,10 @@ Phases, each printed on one line with its elapsed seconds:
   2. build: every kernel is compiled from aqp_tpu_torch/csrc, one nvcc
      process per source started together, then one link (no PyTorch
      headers, no ninja, no network); each compile runs with -Xptxas -v,
-     and blocksort.cu's, rho3.cu's, nphj.cu's, aggpipe.cu's and
-     lanecompact.cu's reports (the sub-range kernels are in rho3.cu,
-     nphj.cu and aggpipe.cu) are printed and must show no spill;
+     and blocksort.cu's, rho3.cu's, nphj.cu's, aggpipe.cu's,
+     lanecompact.cu's, compact.cu's and rstats.cu's reports (the sub-range
+     kernels are in rho3.cu, nphj.cu and aggpipe.cu) are printed and must
+     show no spill;
   3. kernels: K1, K2, K3 and K3M against their plain PyTorch versions on
      the card, at the default, a small, the skew tier's residual and the
      no-partition variants' geometries (f1 = 48; f2 = 32 with 4,096-value
@@ -86,16 +87,20 @@ Phases, each printed on one line with its elapsed seconds:
      nbg_s at the default and at tests/test_torch_nphj.py's geometry,
      duplicate R keys, one R key 5,000 times; its halvings equal K3TWO's
      and join the {"halvings"...} line) and RSTATS
-     (odd lengths, unaligned starts, -1 and repeated candidates) against
-     their plain versions; then run_join on phase 4's relations for PHT
-     (keys-only and checksummed), PHT_no, PHT_un, PHT_o, NPO_st, NPO_no,
-     PHT materialized, one nphj_build probed twice, NPBC_st and PHT's
+     (odd lengths, unaligned starts, -1 and repeated candidates; at full
+     size h = 1 and 1,024, 40 candidates colliding in its table, an R drawn
+     from 4M values and one in runs of 4,096 keys, two calls in a row)
+     against their plain versions; then run_join on phase 4's relations
+     for PHT (keys-only and checksummed), PHT_no, PHT_un, PHT_o, NPO_st,
+     NPO_no, PHT materialized, one nphj_build probed twice, NPBC_st and PHT's
      staged engine (profile_phases), and PHT keys-only and checksummed on
      phase 8's z = 1.5 Zipf S: matches, checksums and live rows equal to the
      exact core's; K1, K2, K3TWO, K3TWO_MAT and RSTATS launched, K3 not;
      each call timed, and each new kernel at the headline shapes beside its
      plain version, its bound and a PyTorch composition (K3TWO and
-     K3TWO_MAT as K3's and K3M's, RSTATS its own).
+     K3TWO_MAT as K3's and K3M's, RSTATS its own; RSTATS's bound counts
+     R's keys and only the payload sectors that hold a hit, all its
+     kernel reads).
  12. the partition-and-sort side at full width: the block sort (B13) and
      the block sort with bucket starts (B12, at F = 1, 16 and 127) against
      their plain versions at sub = 128, 256, 512 and 1024 (three blocks of
@@ -121,6 +126,15 @@ Phases, each printed on one line with its elapsed seconds:
      with the kernels one call launches (counted by the launchers; they
      must be the design's); and the tile sort's plan counts (tile_plan) at those
      shapes and compact_kp's, equal to their plain version's.
+ 13. after every main path, so that its work does not change the state
+     the timed phases run in: the segment scatters (both) on 3,000 segments in no order
+     with gaps, dead segments among them and a cut at out_rows, with no
+     live segment and with none at all, every output row compared (the
+     kernel writes the fill too): exact equality; then the device
+     operations one call issues, from torch.profiler, with its kernel's
+     device microseconds a launch, added to the kernel rows: RSTATS at
+     phase 11's shapes (at most its output's memset and the kernel) and
+     each scatter at phase 8's (the kernel alone).
 Each of phases 4, 7, 8, 9, 10, 11 and 12 sets the launch counts to 0 just
 before its main path and reads them just after; a kernel's launches in the
 kernels line are summed over those main paths.  The scale-up column needs 16 GiB
@@ -146,7 +160,8 @@ from aqp_tpu_torch.config import JoinConfig  # noqa: E402
 from aqp_tpu_torch.data import (  # noqa: E402
     create_relation_fk, create_relation_pk, create_relation_zipf)
 from aqp_tpu_torch import engine  # noqa: E402
-from aqp_tpu_torch.experiments import membench, partition_bench  # noqa: E402
+from aqp_tpu_torch.experiments import (  # noqa: E402
+    membench, partition_bench, wrapper_split)
 from aqp_tpu_torch.joins import skewtier, sortmerge  # noqa: E402
 from aqp_tpu_torch.joins.api import run_join  # noqa: E402
 from aqp_tpu_torch.ops import aggregate, mergejoin, scan  # noqa: E402
@@ -248,6 +263,50 @@ def kernel_split(fn, reps: int = 5) -> dict:
     return {ev.key.replace("(anonymous namespace)::", "").split("(")[0]:
             ev.device_time_total / reps
             for ev in prof.key_averages() if ev.device_time_total > 0}
+
+
+def call_split(name, fn, kernel: str, most_ops: int) -> dict:
+    """A wrapper's device operations a call (at most `most_ops`, the
+    design's) and its kernel's own device microseconds a launch, from
+    torch.profiler (wrapper_split.device_ops)."""
+    ops = wrapper_split.device_ops(fn, REPS)
+    n_ops = sum(v["per_call"] for v in ops.values())
+    mine = [v["us_each"] for k, v in ops.items() if kernel in k]
+    require(n_ops <= most_ops, f"{name} issues {n_ops} device operations a "
+            f"call, more than {most_ops}: {ops}")
+    return {"device_ops_per_call": n_ops,
+            "kernel_us": mine[0] if mine else "not measured",
+            "device_ops": ops}
+
+
+def device_op_checks(relR, rows) -> None:
+    """Phase 13, after every main path (so that its checks and profiler
+    sessions do not change the state the timed phases run in): the
+    segment scatters on scatter_cases, then the device operations one
+    call issues, RSTATS at phase 11's shapes (at most the output's memset
+    and the kernel) and each scatter at phase 8's (the kernel alone), with
+    the kernel's device microseconds, into their kernel rows."""
+    check_scatter_cases()
+    zs = create_relation_zipf(NS, NR, 1.5, seed=22222, random_payload=True,
+                              device=DEV)
+    _, cap = skewtier.skew_plan(zs.key)
+    hk = skewtier.heavy_candidates(zs.key)
+    stages = residual_stages(relR, zs, cap)[0]
+    splits = {}
+    for with_pay in (True, False):
+        splits[("RSTATS", with_pay)] = call_split(
+            "RSTATS", lambda: rstats.r_cand_stats_kernel(
+                relR.key, relR.payload, hk, with_pay), "rstats_kernel", 2)
+    for name in ("scatter_segments", "scatter_segments_one"):
+        args, kernel, _ = stages[name]
+        splits[(name, True)] = call_split(name, lambda: kernel(*args),
+                                          "scatter_kernel", 1)
+    del zs, stages
+    for (name, with_pay), split in splits.items():
+        (rows[name] if with_pay else rows[name]["keys_only"]).update(split)
+        say(f"{name}{'' if with_pay else ' keys-only'}: "
+            f"{split['device_ops_per_call']} device operations a call, the "
+            f"kernel {split['kernel_us']} us a launch: {split['device_ops']}")
 
 
 def max_abs_err(got, want) -> int:
@@ -655,6 +714,61 @@ def check_compaction(n, drop, keep_frac, seed, want_cut) -> None:
                 f" (drop={drop}, keep_frac={keep_frac})")
 
 
+def scatter_cases(src_rows, seed) -> dict:
+    """{label: (soff, doff, sz, out_rows)} on the card: 3,000 segments in
+    no order with gaps between them, the first live one past row 0, dead
+    ones among them (size 0 or negative, a start below 0 or past the
+    output), sources clamped below 0 and past the last row; the same cut
+    at out_rows; none live; none at all."""
+    rng = np.random.default_rng(seed)
+    nseg = 3000
+    sz = rng.integers(1, 80, nseg)
+    doff = np.cumsum(rng.integers(0, 12, nseg) + sz) - sz + 1000
+    end = int((doff + sz).max())
+    soff = rng.integers(-40, src_rows, nseg)
+    sz[::7] = 0
+    sz[3::11] = -5
+    doff[5::13] = -9
+    doff[6::17] = end + 7000
+    order = rng.permutation(nseg)
+    desc = [torch.from_numpy(a[order].astype(np.int32)).to(DEV)
+            for a in (soff, doff, sz)]
+    none = torch.zeros(0, dtype=torch.int32, device=DEV)
+    return {"gaps, dead segments, no order": (*desc, end + 5000),
+            "cut at out_rows": (*desc, end * 2 // 3),
+            "no live segment": (desc[0], desc[1], torch.zeros_like(desc[2]),
+                                end),
+            "no segment": (none, none, none, 4096)}
+
+
+def check_scatter_cases() -> None:
+    """B6a and B6b equal their plain versions on scatter_cases, every
+    output row compared (the kernel writes each one, fill included)."""
+    gen = torch.Generator(device=DEV).manual_seed(306)
+    src_rows = 1 << 17
+    ks, ps = (torch.randint(-(1 << 31), 1 << 31, (src_rows, 128),
+                            generator=gen, device=DEV, dtype=torch.int64)
+              .int() for _ in range(2))
+    fill = lanecompact.PAD_S_INPUT
+    for label, (soff, doff, sz, out_rows) in scatter_cases(src_rows,
+                                                           307).items():
+        nseg = soff.numel()
+        got = [*compact.scatter_segments(ks, ps, soff, doff, sz, nseg,
+                                         out_rows, fill),
+               compact.scatter_segments_one(ks, soff, doff, sz, nseg,
+                                            out_rows, fill)]
+        want = compact.scatter_segments_plain([ks, ps], soff, doff, sz,
+                                              out_rows, fill)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, [*want, want[0]])
+        require(err == 0, f"the segment scatter differs from its plain "
+                f"version by {err} ({label})")
+        covered = int((want[0] != fill).any(1).sum())
+        say(f"scatter_segments and scatter_segments_one ({label}: {nseg} "
+            f"segments, {out_rows} rows, {covered} not fill) equal their "
+            "plain versions")
+
+
 def live_rows(key, r_pay, s_pay):
     """The live (key, R payload, S payload) rows of a materialized result,
     in one canonical order: equal outputs give equal tensors."""
@@ -714,7 +828,7 @@ def main() -> int:
     build.load()
     say(f"build: {secs:.2f} s of nvcc")
     for source in ("blocksort.cu", "rho3.cu", "nphj.cu", "aggpipe.cu",
-                   "lanecompact.cu"):
+                   "lanecompact.cu", "compact.cu", "rstats.cu"):
         report = build.ptxas_report(source)
         for line in report:
             print(f"  {line}", flush=True)
@@ -1108,6 +1222,9 @@ def main() -> int:
     # 12. the partition-and-sort side at full width, on phase 4's relations
     rows.update(sort_phase(relR, relS))
     torch.cuda.synchronize()
+    # 13. after every main path: the scatters' full-size cases and the
+    # device operations of one RSTATS or scatter call
+    device_op_checks(relR, rows)
     say(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         " GiB")
     # each kernel's launches over every phase's main path (K1 and K2 run in
@@ -1178,18 +1295,24 @@ def skew_steps(relR, zs, cap) -> dict:
     return steps
 
 
-def time_compaction(relR, zs, cap, rows) -> dict:
-    """The compactor and the scatters at the z = 1.5 residual's shapes:
-    exact agreement, time, plain time, bound and the one-call equivalent
-    (boolean-mask selection of the same column)."""
+def residual_stages(relR, zs, cap):
+    """compaction_stages on the z = 1.5 residual (the skew tier's remapped
+    S), and that residual."""
     hk = skewtier.heavy_candidates(zs.key)
     rcnt, rph = skewtier.r_cand_stats(relR.key, relR.payload, hk)
     pres = (hk >= 0) & (rcnt > 0)
     _, _, sk_res = skewtier.heavy_split_pass(zs.key, zs.payload, hk, pres,
                                              rph)
-    sp = zs.payload
     keep_frac = min(1.0, cap * 128 / NS)
-    stages, counts, ow, ovf = compaction_stages(sk_res, sp, keep_frac, cap)
+    return (*compaction_stages(sk_res, zs.payload, keep_frac, cap), sk_res)
+
+
+def time_compaction(relR, zs, cap, rows) -> dict:
+    """The compactor and the scatters at the z = 1.5 residual's shapes:
+    exact agreement, time, plain time, bound and the one-call equivalent
+    (boolean-mask selection of the same column)."""
+    stages, counts, ow, ovf, sk_res = residual_stages(relR, zs, cap)
+    sp = zs.payload
     n = sk_res.numel()
     nb = counts.numel()
     lo, hi = KEEP_RANGE
@@ -1921,24 +2044,89 @@ def rstats_candidates(rk, seed) -> torch.Tensor:
     return hk[torch.randperm(64, generator=gen, device=DEV)]
 
 
+def colliding_candidates(rk, count) -> torch.Tensor:
+    """`count` keys of R that share one home entry of RSTATS's smallest
+    table (2,048 entries: key * 0x9E3779B1 >> 21)."""
+    home = ((rk.long() * 0x9E3779B1) & U32) >> 21
+    mode = torch.bincount(home).argmax()
+    return rk[home == mode][:count]
+
+
+def rstats_cases():
+    """{label: (rk, rp, hk)} at full size: the cases RSTATS's design must
+    get right besides the odd lengths and starts of check_rstats."""
+    rk, rp, _, _ = random_pairs(NR, 1, 1 << 23, 1204, True)
+    cases = {}
+    for label, hk in (("h = 1, a key of R", rk[5:6]),
+                      ("h = 1, -1", torch.full((1,), -1, dtype=torch.int32,
+                                               device=DEV)),
+                      ("h = 1, a key R lacks", torch.zeros(
+                          1, dtype=torch.int32, device=DEV))):
+        cases[label] = (rk, rp, hk)
+    # 1,024 slots: keys of R (some repeated), -1s and keys R lacks
+    gen = torch.Generator(device=DEV).manual_seed(1205)
+    present = rk[torch.randint(0, rk.numel(), (960,), generator=gen,
+                               device=DEV)]
+    hk = torch.cat([present, present[:40],
+                    torch.full((20,), -1, dtype=torch.int32, device=DEV),
+                    torch.arange(1 << 23, (1 << 23) + 4, dtype=torch.int32,
+                                 device=DEV)])
+    cases["h = 1,024"] = (rk, rp, hk[torch.randperm(1024, generator=gen,
+                                                    device=DEV)])
+    # 40 candidates on one home entry, -1s and repeats
+    coll = colliding_candidates(rk, 40)
+    cases["40 colliding candidates"] = (rk, rp, torch.cat([
+        coll, coll[:4], torch.full((20,), -1, dtype=torch.int32,
+                                   device=DEV)]))
+    # phase 12's duplicate-key R (RHT's, drawn from 4M values), and R
+    # sorted into runs of 4,096 equal keys (a warp's lanes on one key)
+    dk, dp, _, _ = random_pairs(NR, 1, 1 << 22, 1502, unique_r=False)
+    cases["R drawn from 4M values"] = (dk, dp, rstats_candidates(dk, 1206))
+    runs = (torch.arange(NR, device=DEV, dtype=torch.int32) >> 12) + 1
+    cases["R in runs of 4,096 keys"] = (runs, dp, rstats_candidates(
+        runs, 1207))
+    return cases
+
+
 def check_rstats() -> None:
     """RSTATS equals its plain version exactly: odd lengths, starts off a
     16-byte boundary (alike and unlike for keys and payloads), duplicate R
-    keys, -1 and repeated candidate slots."""
+    keys, -1 and repeated candidate slots; then at full size h = 1 and h
+    = 1,024, candidates colliding in the kernel's table, an R drawn from
+    4M values and an R in long runs of one key, and two calls in a row on
+    different candidates."""
+    def same(keys, pays, hk, with_pay, what):
+        got = rstats.r_cand_stats_kernel(keys, pays, hk, with_pay)
+        want = rstats.r_cand_stats_plain(keys, pays, hk, with_pay)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        require(err == 0, f"RSTATS differs from its plain version by {err} "
+                f"({what}, n={keys.numel()}, h={hk.numel()}, "
+                f"payload={with_pay})")
+        return got
+
     for unique in (True, False):
         rk, rp, _, _ = random_pairs((1 << 22) + 77, 1, 1 << 23, 1202,
                                     unique)
         hk = rstats_candidates(rk, 1203)
         for keys, pays in ((rk, rp), (rk[1:], rp[1:]), (rk[1:-2], rp[2:-1])):
             for with_pay in (True, False):
-                got = rstats.r_cand_stats_kernel(keys, pays, hk, with_pay)
-                want = rstats.r_cand_stats_plain(keys, pays, hk, with_pay)
-                torch.cuda.synchronize()
-                err = max_abs_err(got, want)
-                require(err == 0, f"RSTATS differs from its plain version "
-                        f"by {err} (unique R {unique}, n={keys.numel()}, "
-                        f"payload={with_pay})")
+                got = same(keys, pays, hk, with_pay, f"unique R {unique}")
                 require(int(got[0].sum()) > 0, "RSTATS counted nothing")
+    cases = rstats_cases()
+    for label, (rk, rp, hk) in cases.items():
+        for with_pay in (True, False):
+            got = same(rk, rp, hk, with_pay, label)
+        say(f"RSTATS {label}: {int(got[0].sum())} rows counted, equal to "
+            "the plain version")
+    # two calls in a row on different candidates, read after both
+    rk, rp, hk = cases["R drawn from 4M values"]
+    rk, rp = rk[3:], rp[3:]
+    hk2 = rstats_candidates(rk, 1208)
+    got = [rstats.r_cand_stats_kernel(rk, rp, h, True) for h in (hk, hk2)]
+    for g, h in zip(got, (hk, hk2)):
+        err = max_abs_err(g, rstats.r_cand_stats_plain(rk, rp, h, True))
+        require(err == 0, f"RSTATS's second call in a row differs by {err}")
 
 
 def nopart_main_path(relR, relS, zs):
@@ -2208,17 +2396,20 @@ def nopart_phase(relR, relS) -> dict:
             return cnt
 
         lib_ms = cuda_ms(composition, REPS)
-        nbytes_ = relR.key.numel() * 4 * (2 if with_pay else 1) + 64 * 4 \
-            + 64 * 16
+        # R's keys once, the payloads only where a key hits (in whole
+        # 32-byte sectors), hk, and the (2, h) int64 output
+        hit = torch.isin(relR.key, hk[hk >= 0])
+        pay_bytes = 32 * kept_sectors(hit) if with_pay else 0
+        nbytes_ = relR.key.numel() * 4 + pay_bytes + hk.numel() * (4 + 16)
         bound = nbytes_ / HBM_BYTES_PER_S * 1e3
         lib_call = ("torch.searchsorted of R into the sorted candidates + "
                     + ("two torch.bincount" if with_pay
                        else "one torch.bincount"))
         row = kernel_row("RSTATS", err, k_ms, p_ms, bound, lib_ms, lib_call)
         say(f"RSTATS {'payload' if with_pay else 'keys-only'} (|R| = {NR}, "
-            f"{int((hk >= 0).sum())} candidates): {k_ms:.3f} ms (plain "
-            f"{p_ms:.3f} ms, bound {bound:.3f} ms, {lib_call} "
-            f"{lib_ms:.3f} ms)")
+            f"{int((hk >= 0).sum())} candidates, {int(hit.sum())} rows "
+            f"hit): {k_ms:.3f} ms (plain {p_ms:.3f} ms, bound {bound:.3f} ms "
+            f"from {nbytes_} bytes, {lib_call} {lib_ms:.3f} ms)")
         if with_pay:
             rows["RSTATS"] = row
         else:

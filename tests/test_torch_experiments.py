@@ -72,3 +72,28 @@ def test_drivers_run_as_modules():
             timeout=120)
         assert out.returncode != 0
         assert "no CUDA device" in out.stderr
+
+
+def test_wrapper_split_calls_on_small_inputs_and_needs_a_card(monkeypatch):
+    """wrapper_split's four calls run (here their plain versions, on
+    scaled-down relations) and give the wrappers' outputs; without a card
+    its main exits 2 and measures nothing."""
+    from aqp_tpu_torch.experiments import wrapper_split as ws
+
+    monkeypatch.setattr(ws, "NR", 1 << 14)
+    monkeypatch.setattr(ws, "NS", 1 << 16)
+    for name in ("create_relation_pk", "create_relation_zipf"):
+        make = getattr(ws, name)
+        monkeypatch.setattr(ws, name, lambda *a, make=make, **k: make(
+            *a, **{**k, "device": "cpu"}))
+    got = ws.calls()
+    assert list(got) == ["RSTATS keys-only", "RSTATS with payloads",
+                         "scatter_segments", "scatter_segments_one"]
+    cnt, pay = got["RSTATS with payloads"]()
+    assert cnt.shape == pay.shape == (64,) and int(cnt.sum()) > 0
+    assert not got["RSTATS keys-only"]()[1].any()
+    ok, op = got["scatter_segments"]()
+    assert ok.shape == op.shape and ok.shape[1] == 128
+    assert torch.equal(got["scatter_segments_one"](), ok)
+    if not torch.cuda.is_available():
+        assert ws.main([]) == 2

@@ -86,6 +86,46 @@ def test_r_cand_stats_matches_xla_reference(with_pay, unique):
     np.testing.assert_array_equal((tc, tp), _want(rk, rp, hk, with_pay))
 
 
+def _dup_heavy():
+    """R drawn from few values (every key ~64 times, sorted runs and
+    shuffled halves), payloads near 2^31 so the sums wrap mod 2^32."""
+    rng = np.random.default_rng(31)
+    vals = rng.integers(0, 2048, NR).astype(np.int32)
+    half = NR // 2
+    rk = np.concatenate([np.sort(vals[:half]), vals[half:]])
+    rp = rng.integers(2**30, 2**31, NR).astype(np.int32)
+    return rk, rp
+
+
+EDGE = {
+    # name: (R, candidate slots)
+    "h1-present": ("unique", [777]),
+    "h1-minus-one": ("unique", [-1]),
+    "h1-absent": ("unique", [NR + 3]),
+    "dup-heavy": ("dup", [5, -1, 17, 5, 2047, 3000, -1, 17, 0, 1024]),
+    "dup-heavy-h64": ("dup", list(range(-6, 116, 2))
+                      + [8, 8, -1]),
+}
+
+
+@pytest.mark.parametrize("with_pay", [True, False], ids=["pay", "keys"])
+@pytest.mark.parametrize("case", sorted(EDGE))
+def test_r_cand_stats_edge_cases_match_xla_reference(case, with_pay):
+    """One candidate slot (present, -1, absent), and R drawn from few
+    values against repeated and -1 slots, with payload sums past 2^32."""
+    which, hk = EDGE[case]
+    rk, rp = _unique_r() if which == "unique" else _dup_heavy()
+    hk = np.array(hk, np.int32)
+    jc, jp = jst.r_cand_stats(*(jnp.asarray(a) for a in (rk, rp, hk)),
+                              with_pay=with_pay)
+    tc, tp = _port(rk, rp, hk, with_pay)
+    np.testing.assert_array_equal(tc, np.asarray(jc).astype(np.int64))
+    np.testing.assert_array_equal(tp, np.asarray(jp).astype(np.int64))
+    np.testing.assert_array_equal((tc, tp), _want(rk, rp, hk, with_pay))
+    if which == "dup" and with_pay:
+        assert int(rp[rk == 5].astype(np.int64).sum()) > 1 << 32
+
+
 def test_pallas_name_is_the_same_function():
     assert tst.r_cand_stats_pallas is tst.r_cand_stats
 

@@ -107,10 +107,16 @@ def test_each_wrapper_calls_its_launcher_once(lib):
     rows = _i32(40, 128)
     d = _i32(10)
     ok, op = compact.scatter_segments(rows, rows, d, d, d, 10, 21, 5)
-    assert ok.shape == op.shape == (21, 128) and (ok == 5).all()
-    assert not op.any()
+    assert ok.shape == op.shape == (21, 128)
     one = compact.scatter_segments_one(rows, d, d, d, 10, 21, 5)
     assert one.shape == (21, 128)
+    # the kernel fills the rows no segment covers: the wrapper passes the
+    # fill key, and the outputs, each written by the kernel alone
+    scatter_args = [a for n, a in zip(lib.calls, lib.args)
+                    if n == "scatter_segments"]
+    assert [a[8] for a in scatter_args] == [5, 5]
+    assert scatter_args[0][9:11] == (ok.data_ptr(), op.data_ptr())
+    assert scatter_args[1][9:11] == (one.data_ptr(), None)
     assert [n for n in lib.calls if n.startswith(("rho3_k", "compact",
                                                   "scatter"))
             and n not in ("rho3_k3_max_cap", "rho3_max_slot",
@@ -310,6 +316,10 @@ def test_nphj_and_rstats_wrappers_call_their_launchers_once(lib):
                                               with_pay)
         assert cnt.shape == pay.shape == (64,)
         assert cnt.dtype == pay.dtype == torch.int64
+        # one (2, h) output, zeroed by the launcher, whose rows are the
+        # results
+        out = lib.args[len(lib.calls) - 1][5]
+        assert out == cnt.data_ptr() == pay.data_ptr() - 64 * 8
     assert [n for n in lib.calls if n.startswith(("nphj", "rstats"))
             and n != "rstats_max_h"] == [
         "nphj_k3two", "nphj_k3two", "nphj_k3two_mat", "rstats", "rstats"]
