@@ -1,9 +1,11 @@
 """Join dispatcher (counterpart of aqp_tpu/joins/api.py).
 
-Ported so far: the radix family RHO, RHO_seq, RHT and RSM
-(joins/radix.py), the sort-merge engines PSM and MWAY (joins/sortmerge.py)
-and the no-partition family PHT, PHT_no, PHT_un, PHT_o, NPO_st, NPO_no and
-NPBC_st (joins/nopart.py).  Any other name raises ValueError naming the
+All 20 of the reference's names: the radix family RHO, RHO_seq, RHT and
+RSM (joins/radix.py), the sort-merge engines PSM and MWAY
+(joins/sortmerge.py), the no-partition family PHT, PHT_no, PHT_un, PHT_o,
+NPO_st, NPO_no and NPBC_st (joins/nopart.py), CHT (joins/cht.py), NL and
+INL (joins/nested.py), and the cracking joins CRKJ, CrkJoin, CRKJF and
+CRKJS (joins/crk.py).  Any other name raises ValueError naming the
 registered algorithms.
 """
 
@@ -75,3 +77,6 @@ def finalize_join(relR: Relation, relS: Relation, result: JoinResult,
 from aqp_tpu_torch.joins import radix as _rx  # noqa: E402,F401
 from aqp_tpu_torch.joins import nopart as _np  # noqa: E402,F401
 from aqp_tpu_torch.joins import sortmerge as _sm  # noqa: E402,F401
+from aqp_tpu_torch.joins import cht as _cht  # noqa: E402,F401
+from aqp_tpu_torch.joins import nested as _nl  # noqa: E402,F401
+from aqp_tpu_torch.joins import crk as _crk  # noqa: E402,F401

@@ -203,12 +203,28 @@ def jitter_for(capacity: int) -> int:
     return max(1, min(4096, _pow2_floor(32768 // max(1, capacity))))
 
 
-def jittered_keys(key, jitter: int):
-    """key * jitter + row mod jitter, wrapping in int32 as the reference's
-    does; negative keys (holes) stay."""
+def fitted_jitter(key, jitter: int) -> torch.Tensor:
+    """The largest of jitter, jitter / 2, ..., 1 with (kmax + 1) * J <=
+    MAX_KEY, kmax the largest key below MAX_KEY: every pseudo-group key
+    then stays below MAX_KEY.  A 0-dim int64 tensor, computed on the
+    device (no host sync)."""
+    if key.numel() == 0:
+        return torch.tensor(jitter, device=key.device)
+    kmax = torch.where(key < MAX_KEY, key, -1).amax().clamp(min=0)
+    cand = jitter >> torch.arange(jitter.bit_length(), device=key.device)
+    fits = (kmax.long() + 1) * cand <= MAX_KEY
+    return torch.where(fits, cand, 1).amax()
+
+
+def jittered_keys(key, jitter):
+    """key * jitter + row mod jitter (jitter an int or a 0-dim tensor, a
+    power of two), wrapping in int32 as the reference's does; keys outside
+    [0, MAX_KEY) (holes and pads) stay as they are, so the routed pipeline
+    drops them as the plain branch does."""
     j = torch.arange(key.numel(), device=key.device) & (jitter - 1)
     ekey = ((key.long() * jitter + j - INT32_MIN) & _U32) + INT32_MIN
-    return torch.where(key < 0, key, ekey.to(torch.int32))
+    return torch.where((key < 0) | (key >= MAX_KEY), key,
+                       ekey.to(torch.int32))
 
 
 def groupby_aggregate_routed_auto(key, value, capacity: int,
@@ -223,7 +239,13 @@ def groupby_aggregate_routed_auto(key, value, capacity: int,
     the pseudo-group rows by key and a scatter-combine, plain PyTorch)
     collapses them into `capacity` rows.  J comes from `capacity` (the
     caller's cardinality bound); J = 1 is the plain pipeline with capacity
-    padded by one boundary row per region, so its output is that long."""
+    padded by one boundary row per region, so its output is that long.
+    Where the largest live key kmax would make key * J + J - 1 reach
+    MAX_KEY, J halves until it does not (fitted_jitter, on the device;
+    down to 1, which runs the jittered branch's second level on plain
+    keys): every group stays exact, and a slot overflow at the smaller J
+    poisons num_groups.  (The reference keeps J and merges or drops such
+    groups.)  The first level's capacity stays the capacity's J's."""
     check_device(device, key, value)
     jitter = jitter_for(capacity)
     slack = LANES * prm.f1 * prm.f2 + LANES
@@ -232,6 +254,7 @@ def groupby_aggregate_routed_auto(key, value, capacity: int,
                                         device=device)
     dev = key.device
     cap1 = capacity * jitter + slack
+    jitter = fitted_jitter(key, jitter)
     g = groupby_aggregate_routed(jittered_keys(key, jitter), value, cap1,
                                  prm, device=device)
     big = INT32_MAX

@@ -126,7 +126,21 @@ Phases, each printed on one line with its elapsed seconds:
      with the kernels one call launches (counted by the launchers; they
      must be the design's); and the tile sort's plan counts (tile_plan) at those
      shapes and compact_kp's, equal to their plain version's.
- 13. after every main path, so that its work does not change the state
+ 13. the seven join names that call no kernel (plain PyTorch, as the
+     reference's are plain XLA): CHT, INL, CRKJ, CrkJoin, CRKJF and CRKJS
+     on phase 4's relations, keys-only, checksummed and materialized,
+     and CHT's, INL's and CRKJ's profile_phases forms (the bitmap probe,
+     the binary search, the windowed join after one crack sort a level);
+     NL at experiments/join_overview.py's 2^18 x 2^20, count and
+     materialize; CHT on an R of keys 32 apart (its domain passes
+     16 |R|: it must take sortmerge._sortmerge); the cracking store
+     itself: crk_join_cracked at CRKJ's depth, again on the stores it
+     returned (no crack sort, the same objects back), then one level
+     deeper (one crack sort a side); matches |S|, checksums and live
+     rows equal to PSM's on the same relations, every kernel's launches
+     over the main path 0; each call timed (PSM's three forms beside),
+     with the card's name and power limit;
+ 14. after every main path, so that its work does not change the state
      the timed phases run in: the segment scatters (both) on 3,000 segments in no order
      with gaps, dead segments among them and a cut at out_rows, with no
      live segment and with none at all, every output row compared (the
@@ -135,7 +149,7 @@ Phases, each printed on one line with its elapsed seconds:
      device microseconds a launch, added to the kernel rows: RSTATS at
      phase 11's shapes (at most its output's memset and the kernel) and
      each scatter at phase 8's (the kernel alone).
-Each of phases 4, 7, 8, 9, 10, 11 and 12 sets the launch counts to 0 just
+Each of phases 4, 7, 8, 9, 10, 11, 12 and 13 sets the launch counts to 0 just
 before its main path and reads them just after; a kernel's launches in the
 kernels line are summed over those main paths.  The scale-up column needs 16 GiB
 of device memory (18 GiB with its bitvector).  Then one JSON line with the
@@ -162,7 +176,8 @@ from aqp_tpu_torch.data import (  # noqa: E402
 from aqp_tpu_torch import engine  # noqa: E402
 from aqp_tpu_torch.experiments import (  # noqa: E402
     membench, partition_bench, wrapper_split)
-from aqp_tpu_torch.joins import skewtier, sortmerge  # noqa: E402
+from aqp_tpu_torch.joins import (  # noqa: E402
+    cht, crk, skewtier, sortmerge)
 from aqp_tpu_torch.joins.api import run_join  # noqa: E402
 from aqp_tpu_torch.ops import aggregate, mergejoin, scan  # noqa: E402
 from aqp_tpu_torch.ops.hashing import fib_hash32  # noqa: E402
@@ -170,6 +185,7 @@ from aqp_tpu_torch.ops.kernels import (  # noqa: E402
     aggpipe, blocksort, build, compact, lanecompact, nphj, rho3, rstats)
 from aqp_tpu_torch.ops.kernels import scan as kscan  # noqa: E402
 from aqp_tpu_torch.relation import Relation  # noqa: E402
+from aqp_tpu_torch.utils.timing import PhaseTimer  # noqa: E402
 
 NR, NS = 13_107_200, 52_428_800      # bench.py's headline workload
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory rate
@@ -280,7 +296,7 @@ def call_split(name, fn, kernel: str, most_ops: int) -> dict:
 
 
 def device_op_checks(relR, rows) -> None:
-    """Phase 13, after every main path (so that its checks and profiler
+    """Phase 14, after every main path (so that its checks and profiler
     sessions do not change the state the timed phases run in): the
     segment scatters on scatter_cases, then the device operations one
     call issues, RSTATS at phase 11's shapes (at most the output's memset
@@ -1222,7 +1238,9 @@ def main() -> int:
     # 12. the partition-and-sort side at full width, on phase 4's relations
     rows.update(sort_phase(relR, relS))
     torch.cuda.synchronize()
-    # 13. after every main path: the scatters' full-size cases and the
+    # 13. the seven join names left (plain PyTorch), on phase 4's relations
+    print(json.dumps(families_phase(relR, relS, card)), flush=True)
+    # 14. after every main path: the scatters' full-size cases and the
     # device operations of one RSTATS or scatter call
     device_op_checks(relR, rows)
     say(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f}"
@@ -2845,6 +2863,191 @@ def sort_phase(relR, relS) -> dict:
         flush=True)
     return rows
 
+
+FAMILY_NAMES = ("CHT", "INL", "CRKJ", "CrkJoin", "CRKJF", "CRKJS")
+FAMILY_FORMS = (("keys-only", JoinConfig(checksum=False)),
+                ("checksummed", JoinConfig()),
+                ("materialize", JoinConfig(materialize=True)))
+PROFILE_FORMS = (("profile_phases", JoinConfig(profile_phases=True)),
+                 ("profile_phases materialize",
+                  JoinConfig(profile_phases=True, materialize=True)))
+NL_NR, NL_NS = 1 << 18, 1 << 20     # experiments/join_overview.py:29-33
+SPARSE_STRIDE = 32                  # CHT's sparse R: keys 32 apart
+
+
+def once_ms(fn):
+    """(result, device milliseconds) of one call of fn, from CUDA events
+    (no warm-up: the first call is the one measured)."""
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def family_calls(relR, relS, nl, sparse) -> dict:
+    """Phase 13's calls: label -> a run_join call, whose first element is
+    the JoinResult and second the Timings."""
+    calls = {}
+    for name in FAMILY_NAMES + ("PSM",):
+        for label, cfg in FAMILY_FORMS:
+            calls[f"{name} {label}"] = functools.partial(
+                run_join, relR, relS, name, cfg)
+    for name in ("CHT", "INL", "CRKJ"):
+        for label, cfg in PROFILE_FORMS:
+            calls[f"{name} {label}"] = functools.partial(
+                run_join, relR, relS, name, cfg)
+    calls["NL"] = functools.partial(run_join, *nl, "NL", JoinConfig())
+    calls["NL materialize"] = functools.partial(
+        run_join, *nl, "NL", JoinConfig(materialize=True))
+    calls["CHT sparse R"] = functools.partial(run_join, *sparse, "CHT",
+                                              JoinConfig())
+    return calls
+
+
+def crack_reuse(relR, relS) -> dict:
+    """The persistent cracking store at the headline: crk_join_cracked at
+    CRKJ's depth (11), again on the stores it returned (no crack sort,
+    the same objects back), then one level deeper with profile_phases
+    (one crack sort a side, of the missing level only).  Returns each
+    call's result, stores, time and the crack sorts it ran."""
+    kb = crk._key_bits(NR)
+    depth = crk._query_depth(NR, JoinConfig(), 0)
+    sorts = []
+    level = crk._crack_level
+
+    def counted(key, payload, d, key_bits):
+        sorts.append(d)
+        return level(key, payload, d, key_bits)
+
+    stores = (crk.crack_relation(relR, kb), crk.crack_relation(relS, kb))
+    out = {}
+    crk._crack_level = counted
+    try:
+        for label, d, cfg in (("first", depth, JoinConfig()),
+                              ("second", depth, JoinConfig()),
+                              ("deeper", depth + 1,
+                               JoinConfig(profile_phases=True))):
+            pt = PhaseTimer(DEV)
+            sorts.clear()
+            (res, cr_r, cr_s), ms = once_ms(
+                lambda: crk.crk_join_cracked(*stores, cfg, d, pt))
+            out[label] = {"result": res, "stores": (cr_r, cr_s), "ms": ms,
+                          "sorts": list(sorts), "phases": pt.t.phases,
+                          "same_objects": cr_r is stores[0]
+                          and cr_s is stores[1]}
+            stores = (cr_r, cr_s)
+    finally:
+        crk._crack_level = level
+    return out
+
+
+def check_families(out, reuse, nl, sparse) -> dict:
+    """Every phase-13 answer against PSM's on the same relations: matches
+    |S|, the checksum (0 keys-only on the serving paths; the staged
+    profile_phases forms sum payloads as the reference's do), materialized
+    live rows as a multiset; CHT's sparse R through _sortmerge; the crack
+    store's reuse.  Returns what the families line prints of it."""
+    psm = out["PSM checksummed"][0]
+    want = (NS, int(psm.checksum))
+    psm_rows = out["PSM materialize"][0]
+    psm_rows = (psm_rows.key, psm_rows.r_payload, psm_rows.s_payload)
+    require((int(psm.matches), int(out["PSM keys-only"][0].matches))
+            == (NS, NS), "PSM: matches != |S|")
+    for label, (res, t) in out.items():
+        if label.startswith(("NL", "CHT sparse")):
+            continue
+        cs = 0 if label.endswith("keys-only") else want[1]
+        require((int(res.matches), int(res.checksum)) == (NS, cs),
+                f"{label}: matches/checksum != PSM's")
+        if label.endswith("materialize"):
+            require(same_live_rows((res.key, res.r_payload, res.s_payload),
+                                   psm_rows),
+                    f"{label}: live rows != PSM's")
+    nl_psm = run_join(*nl, "PSM", JoinConfig())[0]
+    nl_mat = run_join(*nl, "PSM", JoinConfig(materialize=True))[0]
+    require((int(out["NL"][0].matches), int(out["NL"][0].checksum))
+            == (NL_NS, int(nl_psm.checksum)) and int(nl_psm.matches)
+            == NL_NS, "NL: matches/checksum != PSM's")
+    res = out["NL materialize"][0]
+    require((int(res.matches), int(res.checksum))
+            == (NL_NS, int(nl_psm.checksum)), "NL materialize: "
+            "matches/checksum != PSM's")
+    require(same_live_rows((res.key, res.r_payload, res.s_payload),
+                           (nl_mat.key, nl_mat.r_payload, nl_mat.s_payload)),
+            "NL materialize: live rows != PSM's")
+    res, t = out["CHT sparse R"]
+    sp_psm = run_join(*sparse, "PSM", JoinConfig())[0]
+    require((int(res.matches), int(res.checksum))
+            == (NS, int(sp_psm.checksum)), "CHT sparse R != PSM's")
+    domain = cht.cht_domain(sparse[0].key)
+    require(domain > 16 * NR and "build" not in t.phases
+            and "merge" in t.phases, f"CHT on a sparse R (domain {domain})"
+            f" did not take _sortmerge: {t.phases}")
+    first, second, deeper = reuse["first"], reuse["second"], reuse["deeper"]
+    depth = first["stores"][0].depth
+    require(first["sorts"] == [depth, depth] and "partition"
+            in first["phases"], f"the first crack ran {first['sorts']}")
+    require(second["sorts"] == [] and "partition" not in second["phases"]
+            and second["same_objects"], "the second query on the cracked "
+            f"stores cracked again: {second['sorts']}")
+    require(deeper["sorts"] == [depth + 1, depth + 1]
+            and deeper["stores"][0].depth == depth + 1
+            and deeper["stores"][1].depth == depth + 1,
+            f"the deeper query cracked {deeper['sorts']}, not one level")
+    for label, r in reuse.items():
+        cs = int(r["result"].checksum)
+        require((int(r["result"].matches), cs) == want,
+                f"crk_join_cracked {label}: result != PSM's")
+    return {label: {"ms": r["ms"], "sorts": r["sorts"],
+                    "phases": r["phases"], "depth": r["stores"][0].depth}
+            for label, r in reuse.items()} | {"sparse_domain": domain}
+
+
+def families_phase(relR, relS, card) -> dict:
+    """Phase 13: the seven join names left, plain PyTorch, at full width:
+    CHT, INL, CRKJ, CrkJoin, CRKJF and CRKJS on phase 4's relations
+    (keys-only, checksummed, materialized; CHT's, INL's and CRKJ's
+    profile_phases forms), NL at join_overview's 2^18 x 2^20, CHT on a
+    sparse R (keys 32 apart: its domain passes 16 |R|), and the cracking
+    store's reuse.  Every answer equals PSM's; every kernel's launches
+    over the main path must be 0 (no name reaches a kernel).  Returns the
+    families line."""
+    nl = seeded(NL_NR, NL_NS, seed=1601)
+    sparse = (Relation(key=relR.key * SPARSE_STRIDE, payload=relR.payload),
+              Relation(key=relS.key * SPARSE_STRIDE, payload=relS.payload))
+    calls = family_calls(relR, relS, nl, sparse)
+    torch.cuda.synchronize()
+    reset_launches()
+    out = {label: fn() for label, fn in calls.items()}
+    reuse = crack_reuse(relR, relS)
+    torch.cuda.synchronize()
+    launches = main_path_launches("13 join families")
+    say(f"join families path launches: {launches}")
+    require(not any(launches.values()), "a plain-PyTorch join name "
+            f"launched a kernel: {launches}")
+    crack = check_families(out, reuse, nl, sparse)
+    say("join families: CHT, INL, CRKJ, CrkJoin, CRKJF and CRKJS "
+        "(keys-only, checksummed, materialized; CHT, INL and CRKJ also "
+        "profile_phases) and NL at 2^18 x 2^20 = PSM's answers; CHT on a "
+        "sparse R took _sortmerge; a second crk_join_cracked cracked "
+        "nothing and returned the same stores, a deeper one cracked one "
+        f"level: {json.dumps(crack)}")
+    phases = {label: res[1].phases for label, res in out.items()}
+    del out, reuse
+    torch.cuda.synchronize()
+    res_ms = {}
+    for label, fn in calls.items():
+        slow = label.startswith("NL") or "profile_phases" in label
+        res_ms[label] = cuda_ms(fn, 1 if slow else REPS)
+        say(f"phase 13 {label}: {res_ms[label]:.3f} ms/call ({card})")
+    del nl, sparse, calls
+    torch.cuda.synchronize()
+    return {"families": {"card": card, "ms": res_ms, "phases": phases,
+                         "crack_reuse": crack, "launches": launches}}
 
 if __name__ == "__main__":
     sys.exit(main())

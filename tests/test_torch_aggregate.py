@@ -178,3 +178,57 @@ def test_k3agg_plain_rows_are_the_regions_groups():
         for o in (ocnt, osum, omin, omax):
             assert not o[r, c:].any()
     assert tpipe.LAUNCHES == before
+
+
+def _c8_rows(keys_counts, seed):
+    rng = np.random.default_rng(seed)
+    key = np.repeat(np.array([k for k, _ in keys_counts], np.int64),
+                    [c for _, c in keys_counts]).astype(np.int32)
+    rng.shuffle(key)
+    val = rng.integers(-(1 << 31), 1 << 31, key.size,
+                       dtype=np.int64).astype(np.int32)
+    return key, val
+
+
+@pytest.mark.parametrize("case", ["key 2^23 + 3", "keys 3, 2^21, 9",
+                                  "pad keys"])
+def test_routed_auto_keeps_groups_above_max_key_over_jitter(case):
+    """A key at or above MAX_KEY / J used to wrap key * J and merge into
+    another group (or drop); J now shrinks until (kmax + 1) * J <= MAX_KEY,
+    so every group comes out exact, and keys at or above MAX_KEY are
+    dropped as the plain branch drops them.  Held to the sort-based
+    aggregate of the live rows and to a numpy truth; the reference is
+    compared on the small keys only, where it is right."""
+    cap = 64                                   # jitter_for(64) = 512
+    if case == "key 2^23 + 3":
+        small = [(k, 5) for k in range(10, 50)]
+        spec = [(3, 300), ((1 << 23) + 3, 300)] + small
+    elif case == "keys 3, 2^21, 9":
+        small = [(3, 200), (9, 200)]
+        spec = [(3, 200), (1 << 21, 200), (9, 200)]
+    else:
+        small = [(3, 200), (9, 200)]
+        spec = small + [(tpipe.MAX_KEY, 50), ((1 << 30) + 5, 50), (-3, 50)]
+    key, val = _c8_rows(spec, seed=len(spec))
+    live = (key >= 0) & (key < tpipe.MAX_KEY)
+    t = tpipe.groupby_aggregate_routed_auto(torch.from_numpy(key),
+                                            torch.from_numpy(val), cap,
+                                            prm=TPRM, device="cpu")
+    oracle = tagg.groupby_aggregate(torch.from_numpy(key[live]),
+                                    torch.from_numpy(val[live]), cap,
+                                    device="cpu")
+    truth = {}
+    for k in np.unique(key[live]):
+        v = val[key == k].astype(np.int64)
+        truth[int(k)] = (v.size, int(v.sum()) & U32, int(v.min()),
+                         int(v.max()))
+    assert int(t.num_groups) == int(oracle.num_groups) == len(truth)
+    assert _rows(t) == _rows(oracle) == truth
+    # the reference, on the rows whose keys stay below MAX_KEY / 512
+    keep = np.isin(key, [k for k, _ in small])
+    j = jpipe.groupby_aggregate_routed_auto(jnp.asarray(key[keep]),
+                                            jnp.asarray(val[keep]), cap,
+                                            prm=JPRM, interpret=True)
+    want = {k: v for k, v in truth.items() if k in dict(small)}
+    assert _rows(j) == want
+    assert {k: v for k, v in _rows(t).items() if k in want} == want

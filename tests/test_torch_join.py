@@ -282,7 +282,7 @@ def test_engine_entry_points_match_reference():
 def test_unknown_algorithm_names_the_registered_ones():
     _, (tr, ts) = _relations("fk")
     with pytest.raises(ValueError, match="RHO"):
-        trun(tr, ts, "CHT", device="cpu")
+        trun(tr, ts, "NOPE", device="cpu")
 
 
 def test_relations_on_another_device_raise():
