@@ -140,7 +140,30 @@ Phases, each printed on one line with its elapsed seconds:
      rows equal to PSM's on the same relations, every kernel's launches
      over the main path 0; each call timed (PSM's three forms beside),
      with the card's name and power limit;
- 14. after every main path, so that its work does not change the state
+ 14. the TPC-H layer at SF 10: data/tpch_dbgen.py writes its store into
+     a temporary directory (removed after the phase) and the loaders put
+     the five tables on the card (seconds printed); the four staged plans
+     (RHO) and the four fused plans on them and on
+     generate_tpch_tables(scale=10)'s tables: every count equal to an
+     oracle on the card that uses no join engine (torch.isin chains for
+     Q3, Q10 and Q12, a searchsorted lookup of part and the residual for
+     Q19), every fused ok true, K1, K2, K3, K3M, the window compactor and
+     both scatters launched by the fused plans (the staged plans'
+     launches reported); each plan timed (1 warm-up, 3 calls, CUDA
+     events) as M rows/s = rows_in / s, the staged plans with their
+     filter, join and materialize phases; staged Q12's join on the
+     filter's full-length output (its pad keys walk RHO's ladder) and on
+     its live prefix, equal answers, both timed; and at the plans' SF 10
+     shapes B5 and B6b (Q12's 1/48 of lineitem), B5 and B6a (Q3's
+     orders), K1, K2, K3 and K3M (fused Q3's first join) and K1, K2 and K3
+     (its count join) held exactly to their plain versions; staged Q12's
+     join and staged Q3's first join rebuilt up to their skew tier on
+     the filters' full-length columns: RSTATS on R with skew_plan's own
+     candidates (keys-only and with payloads), the compacted residual's
+     B5 and B6a, and K1 and K2 under the first salt on each attempt's
+     packed keys, held to their plain versions; the fused plans' key
+     domain check timed beside its former form; one {"tpch"...} line;
+ 15. after every main path, so that its work does not change the state
      the timed phases run in: the segment scatters (both) on 3,000 segments in no order
      with gaps, dead segments among them and a cut at out_rows, with no
      live segment and with none at all, every output row compared (the
@@ -149,8 +172,8 @@ Phases, each printed on one line with its elapsed seconds:
      device microseconds a launch, added to the kernel rows: RSTATS at
      phase 11's shapes (at most its output's memset and the kernel) and
      each scatter at phase 8's (the kernel alone).
-Each of phases 4, 7, 8, 9, 10, 11, 12 and 13 sets the launch counts to 0 just
-before its main path and reads them just after; a kernel's launches in the
+Each of phases 4, 7, 8, 9, 10, 11, 12, 13 and 14 sets the launch counts to 0
+just before its main path and reads them just after; a kernel's launches in the
 kernels line are summed over those main paths.  The scale-up column needs 16 GiB
 of device memory (18 GiB with its bitvector).  Then one JSON line with the
 kernels' numbers, and last the result line {"ok": true, "device": {...}}.  Any failure exits
@@ -165,6 +188,7 @@ import functools  # noqa: E402
 import json  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
+import tempfile  # noqa: E402
 import time  # noqa: E402
 
 import numpy as np  # noqa: E402
@@ -172,7 +196,8 @@ import torch  # noqa: E402
 
 from aqp_tpu_torch.config import JoinConfig  # noqa: E402
 from aqp_tpu_torch.data import (  # noqa: E402
-    create_relation_fk, create_relation_pk, create_relation_zipf)
+    create_relation_fk, create_relation_pk, create_relation_zipf,
+    tpch_dbgen, tpch_loader)
 from aqp_tpu_torch import engine  # noqa: E402
 from aqp_tpu_torch.experiments import (  # noqa: E402
     membench, partition_bench, wrapper_split)
@@ -184,6 +209,9 @@ from aqp_tpu_torch.ops.hashing import fib_hash32  # noqa: E402
 from aqp_tpu_torch.ops.kernels import (  # noqa: E402
     aggpipe, blocksort, build, compact, lanecompact, nphj, rho3, rstats)
 from aqp_tpu_torch.ops.kernels import scan as kscan  # noqa: E402
+from aqp_tpu_torch.queries import filters as F  # noqa: E402
+from aqp_tpu_torch.queries import fused, tpch  # noqa: E402
+from aqp_tpu_torch.queries import tables as TT  # noqa: E402
 from aqp_tpu_torch.relation import Relation  # noqa: E402
 from aqp_tpu_torch.utils.timing import PhaseTimer  # noqa: E402
 
@@ -296,7 +324,7 @@ def call_split(name, fn, kernel: str, most_ops: int) -> dict:
 
 
 def device_op_checks(relR, rows) -> None:
-    """Phase 14, after every main path (so that its checks and profiler
+    """Phase 15, after every main path (so that its checks and profiler
     sessions do not change the state the timed phases run in): the
     segment scatters on scatter_cases, then the device operations one
     call issues, RSTATS at phase 11's shapes (at most the output's memset
@@ -481,11 +509,15 @@ def check_routing(label, packed, pay, scale, k1_overflows, k2_overflows,
                   prm=rho3.Rho3Params()) -> None:
     """K1 and K2 against their plain versions on packed keys: exactly,
     or where K1 overflows (its slots keep what its scatter placed first)
-    K1's counts and overflow, and K2 exactly on K1's output."""
+    K1's counts and overflow, and K2 exactly on K1's output.  An overflow
+    flag given as None is taken from the plain version.  Returns (K1's
+    overflow, K2's)."""
     nb = rho3.num_blocks(packed.numel(), prm)
     got = rho3.k1(packed, pay, nb, prm, scale)
     want = rho3.k1_plain(packed, pay, nb, prm, scale)
     torch.cuda.synchronize()
+    if k1_overflows is None:
+        k1_overflows = int(want[3]) > 0
     what = f"{label}, payload={pay is not None}"
     require((int(got[3]) > 0) == k1_overflows
             and int(got[3]) == int(want[3]), f"K1 overflow {int(got[3])} "
@@ -496,10 +528,13 @@ def check_routing(label, packed, pay, scale, k1_overflows, k2_overflows,
     k2 = rho3.k2(*got[:3], prm, scale)
     k2_want = rho3.k2_plain(*got[:3], prm, scale)
     torch.cuda.synchronize()
+    if k2_overflows is None:
+        k2_overflows = int(k2_want[3]) > 0
     require(k1_overflows or (int(k2[3]) > 0) == k2_overflows,
             f"K2 overflow {int(k2[3])} at {what}")
     err = max_abs_err(k2, k2_want)
     require(err == 0, f"K2 differs from its plain version by {err} at {what}")
+    return int(got[3]), int(k2[3])
 
 
 def routing_cases(r, s) -> dict:
@@ -1240,13 +1275,15 @@ def main() -> int:
     torch.cuda.synchronize()
     # 13. the seven join names left (plain PyTorch), on phase 4's relations
     print(json.dumps(families_phase(relR, relS, card)), flush=True)
-    # 14. after every main path: the scatters' full-size cases and the
+    # 14. the TPC-H layer at SF 10: the dbgen store and synthetic tables
+    print(json.dumps(tpch_phase(card)), flush=True)
+    # 15. after every main path: the scatters' full-size cases and the
     # device operations of one RSTATS or scatter call
     device_op_checks(relR, rows)
     say(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         " GiB")
     # each kernel's launches over every phase's main path (K1 and K2 run in
-    # phases 4, 7, 8, 10, 11 and 12)
+    # phases 4, 7, 8, 10, 11, 12 and 14)
     total = {k: sum(p[k] for p in MAIN_PATH.values()) for k in SOURCE}
     print(json.dumps({"main_path_launches": MAIN_PATH, "total": total}),
           flush=True)
@@ -3048,6 +3085,354 @@ def families_phase(relR, relS, card) -> dict:
     torch.cuda.synchronize()
     return {"families": {"card": card, "ms": res_ms, "phases": phases,
                          "crack_reuse": crack, "launches": launches}}
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the TPC-H layer
+
+TPCH_SCALE = 10
+TPCH_REPS = 3
+TPCH_NAMES = ("lineitem", "orders", "customer", "part", "nation")
+# query -> (staged plan, fused plan, its tables as indices into
+# (lineitem, orders, customer, part, nation))
+TPCH_PLANS = {"Q3": (tpch.tpch_q3, fused.tpch_q3_fused, (2, 1, 0)),
+              "Q10": (tpch.tpch_q10, fused.tpch_q10_fused, (2, 1, 0, 4)),
+              "Q12": (tpch.tpch_q12, fused.tpch_q12_fused, (0, 1)),
+              "Q19": (tpch.tpch_q19, fused.tpch_q19_fused, (0, 3))}
+# B1-B6: what the fused plans launch at SF 10
+TPCH_KERNELS = ("K1", "K2", "K3", "K3M", "compact_windows",
+                "scatter_segments", "scatter_segments_one")
+
+
+def tpch_oracle(q, l, o, c, p, n) -> int:
+    """The query's count from masks, torch.isin chains and (Q19) a
+    searchsorted lookup of part with the residual: no join engine and none
+    of the plans' code."""
+    if q == "Q3":
+        cust = c.key[c.mktsegment == TT.MKT_BUILDING]
+        om = (o.orderdate < TT.TS_1995_03_15) & torch.isin(o.custkey, cust)
+        lm = l.shipdate >= TT.TS_1995_03_16
+        return int((lm & torch.isin(l.key, o.key[om])).sum())
+    if q == "Q10":
+        cust = c.key[torch.isin(c.nationkey, n.key)]
+        om = ((o.orderdate >= TT.TS_1993_10_01)
+              & (o.orderdate < TT.TS_1994_01_01)
+              & torch.isin(o.custkey, cust))
+        lm = l.returnflag == TT.L_RETURNFLAG_R
+        return int((lm & torch.isin(l.key, o.key[om])).sum())
+    if q == "Q12":
+        lm = (((l.shipmode == TT.L_SHIPMODE_MAIL)
+               | (l.shipmode == TT.L_SHIPMODE_SHIP))
+              & (l.commitdate < l.receiptdate) & (l.shipdate < l.commitdate)
+              & (l.receiptdate >= TT.TS_1994_01_01)
+              & (l.receiptdate < TT.TS_1995_01_01))
+        return int((lm & torch.isin(l.key, o.key)).sum())
+    keys, order = torch.sort(p.key)
+    at = torch.searchsorted(keys, l.partkey).clamp(max=keys.numel() - 1)
+    hit = keys[at] == l.partkey
+    row = order[at]
+    brand, cont, size = p.brand[row], p.container[row], p.size[row]
+    qty = l.quantity
+    lm = ((qty >= 1) & (qty <= 30)
+          & ((l.shipmode == TT.L_SHIPMODE_AIR)
+             | (l.shipmode == TT.L_SHIPMODE_AIR_REG))
+          & (l.shipinstruct == TT.L_SHIPINSTRUCT_DELIVER_IN_PERSON))
+    p1 = ((brand == TT.P_BRAND_12) & (cont >= 1) & (cont <= 4)
+          & (size >= 1) & (size <= 5) & (qty <= 11))
+    p2 = ((brand == TT.P_BRAND_23) & (cont >= 5) & (cont <= 8)
+          & (size >= 1) & (size <= 10) & (qty >= 10) & (qty <= 20))
+    p3 = ((brand == TT.P_BRAND_34) & (cont >= 9) & (cont <= 12)
+          & (size >= 1) & (size <= 15) & (qty >= 20))
+    return int((lm & hit & (p1 | p2 | p3)).sum())
+
+
+def time_plan(fn):
+    """(mean device ms of one call over TPCH_REPS calls after one warm-up,
+    from CUDA events around each call; the mean of a staged plan's
+    phases in seconds, or None)."""
+    fn()
+    total, phases = 0.0, {}
+    for _ in range(TPCH_REPS):
+        out, ms = once_ms(fn)
+        total += ms
+        for k, v in getattr(getattr(out, "timings", None), "phases",
+                            {}).items():
+            phases[k] = phases.get(k, 0.0) + v / TPCH_REPS
+    return total / TPCH_REPS, phases or None
+
+
+def tpch_run(label, tables, card) -> dict:
+    """The eight plans on one set of tables: every count equal to the
+    oracle's, every fused ok true, B1-B6 launched by the fused plans (the
+    staged plans' launches reported); then each plan timed."""
+    want = {q: tpch_oracle(q, *tables) for q in TPCH_PLANS}
+    calls = {}
+    for q, (staged, fuse, idx) in TPCH_PLANS.items():
+        args = tuple(tables[i] for i in idx)
+        calls[f"{q} fused"] = (functools.partial(fuse, *args), args)
+        calls[f"{q} staged"] = (functools.partial(staged, *args,
+                                                  algorithm="RHO"), args)
+    got, launches = {}, {}
+    for form in ("fused", "staged"):
+        torch.cuda.synchronize()
+        reset_launches()
+        for q in TPCH_PLANS:
+            got[f"{q} {form}"] = calls[f"{q} {form}"][0]()
+        torch.cuda.synchronize()
+        launches[form] = main_path_launches(f"14 TPC-H {form}, {label}")
+        say(f"TPC-H {label} {form} path launches: {launches[form]}")
+    for q in TPCH_PLANS:
+        m, ok = got[f"{q} fused"]
+        require(bool(ok), f"TPC-H {label} {q} fused: a bound overflowed")
+        require(int(m) == want[q], f"TPC-H {label} {q} fused: {int(m)} "
+                f"!= the oracle's {want[q]}")
+        staged = got[f"{q} staged"].matches
+        require(staged == want[q], f"TPC-H {label} {q} staged: {staged} "
+                f"!= the oracle's {want[q]}")
+    missing = [k for k in TPCH_KERNELS if launches["fused"][k] == 0]
+    require(not missing, f"TPC-H {label}: the fused plans launched no "
+            f"{missing}")
+    say(f"TPC-H {label}: the eight plans equal the oracle {want}, every "
+        "fused ok true")
+    del got
+    timed = {}
+    for name, (fn, args) in calls.items():
+        ms, phases = time_plan(fn)
+        rows_in = sum(t.num_tuples for t in args)
+        timed[name] = {"ms": ms, "mrows_per_s": rows_in / ms / 1e3,
+                       "rows_in": rows_in, "phases": phases}
+        say(f"TPC-H {label} {name}: {ms:.3f} ms/call, "
+            f"{rows_in / ms / 1e3:.1f} M rows/s"
+            + (f", phases {json.dumps(phases)}" if phases else "")
+            + f" ({card})")
+    return {"oracle": want, "launches": launches, "timed": timed}
+
+
+def staged_pads_cost(l, o, card) -> dict:
+    """Staged Q12's join on the filter's full-length output (the pad keys
+    walk RHO's ladder to the exact core) and on its live prefix: equal
+    answers, both timed with fresh S tensors each call (the staged plan
+    filters anew each call, so its skew plan is never cached)."""
+    lk, lp, cnt = F.q12_filter_lineitem(l)
+    live = int(cnt)
+    relR = Relation(key=o.key, payload=o.rowid)
+    out = {}
+    for label, n in (("full length", lk.numel()), ("live prefix", live)):
+        def join(n=n):
+            return run_join(relR, Relation(key=lk[:n].clone(),
+                                           payload=lp[:n].clone()), "RHO",
+                            JoinConfig(), device=DEV)[0]
+        torch.cuda.synchronize()
+        reset_launches()
+        res = join()
+        torch.cuda.synchronize()
+        ran = {k: v for k, v in read_launches().items() if v}
+        out[label] = {"rows": n, "matches": int(res.matches),
+                      "checksum": int(res.checksum), "launches": ran,
+                      "ms": cuda_ms(join, TPCH_REPS)}
+        say(f"TPC-H staged Q12 join, {label} ({n} S rows): "
+            f"{out[label]['ms']:.3f} ms/call, launches {ran} ({card})")
+    a, b = out["full length"], out["live prefix"]
+    require((a["matches"], a["checksum"]) == (b["matches"], b["checksum"]),
+            f"staged Q12's join: the full length {a} != the live prefix {b}")
+    return out
+
+
+def check_tpch_kernels(l, o, c) -> None:
+    """The kernels the fused plans launch, each against its plain version
+    exactly at one of its SF 10 shapes: B5 (keys-only) and B6b at Q12's
+    keep fraction of 1/48 over lineitem, B5 (key + payload) and B6a at
+    Q3's orders compaction, K1, K2, K3 and K3M at fused Q3's first join
+    and K1, K2 and K3 at its count join; then the staged plans' RSTATS,
+    B5, B6a, K1 and K2 on staged Q12's join and staged Q3's first join up
+    to their skew tier (check_staged_ladder)."""
+    nl, no, nc = l.num_tuples, o.num_tuples, c.num_tuples
+    lmask, lkey, _ = F.q12_mask_lineitem(l)
+    omask, okey, opay = F.q3_mask_orders(o)
+    for label, key, pay, cap, names in (
+            ("Q12's lineitem", torch.where(lmask, lkey, rho3.PAD_S_INPUT),
+             l.rowid, fused._cap(nl, 1, 48),
+             (KEYS_ONLY_B5, "scatter_segments_one")),
+            ("Q3's orders", torch.where(omask, okey, rho3.PAD_S_INPUT),
+             torch.where(omask, opay, 0), fused._cap(no, 5, 8),
+             ("compact_windows", "scatter_segments"))):
+        stages, _, _, ovf = compaction_stages(key, pay, cap / key.numel(),
+                                              cap // 128)
+        require(ovf == 0, f"TPC-H {label}: the compaction overflowed")
+        for name in names:
+            args, kernel, plain = stages[name]
+            got = flat_outputs(name, kernel(*args))
+            want = flat_outputs(name, plain(*args))
+            torch.cuda.synchronize()
+            if not name.startswith("compact_windows"):
+                got, want = [g[:-1] for g in got], [w[:-1] for w in want]
+            err = max_abs_err(got, want)
+            require(err == 0, f"{name} differs from its plain version by "
+                    f"{err} at TPC-H {label}")
+        del stages
+    ck, cp, ok1 = fused._compact(*F.q3_mask_customer(c),
+                                 fused._cap(nc, 5, 16), rho3.PAD_R_INPUT)
+    ok_, op_, ok2 = fused._compact(*F.q3_mask_orders(o),
+                                   fused._cap(no, 5, 8), rho3.PAD_S_INPUT)
+    require(bool(ok1 & ok2), "fused Q3's compactions overflowed")
+    check_kernels(ck, cp, ok_, op_, rho3.Rho3Params(), True,
+                  f"TPC-H SF {TPCH_SCALE} Q3 first join")
+    j1, okj = fused._mat_join(ck, cp, ok_, op_, ok_.numel())
+    lmask, lkey, _ = F.q3_mask_lineitem(l)
+    lk, okc = fused._compact_keys(lmask, lkey, fused._cap(nl, 3, 4),
+                                  rho3.PAD_S_INPUT)
+    require(bool(okj & okc), "fused Q3's first join or compaction "
+            "overflowed")
+    uk = torch.where(j1.key == -3, rho3.PAD_R_INPUT, j1.s_payload)
+    check_kernels(uk, j1.s_payload, lk, torch.zeros_like(lk),
+                  rho3.Rho3Params(), False,
+                  f"TPC-H SF {TPCH_SCALE} Q3 count join")
+    say("TPC-H kernels: B5 and B6b at Q12's 1/48, B5 and B6a at Q3's "
+        "orders, K1, K2, K3 and K3M at fused Q3's first join, K1, K2 and "
+        "K3 at its count join equal their plain versions "
+        f"(SF {TPCH_SCALE})")
+    lk, lp, _ = F.q12_filter_lineitem(l)
+    check_staged_ladder("Q12's join", o.key, o.rowid, lk, lp, True)
+    del lk, lp
+    ck, cp, _ = F.q3_filter_customer(c)
+    sk, sp, _ = F.q3_filter_orders(o)
+    check_staged_ladder("Q3's first join", ck, cp, sk, sp, False)
+
+
+def check_staged_ladder(label, rk, rp, sk, sp, count: bool) -> dict:
+    """One staged join's kernels up to its skew tier, on the filters'
+    full-length columns (pad keys in the tail) as the staged plan hands
+    them to RHO.  RSTATS on R with skew_plan's own candidates from S,
+    keys-only and with payloads, exactly equal to its plain version; the
+    skew tier's residual (S with the present candidates' rows remapped to
+    the input pad), and for a count ladder whose plan gives a capacity
+    its compaction (B5 and B6a exactly, as the compacted-residual tier's
+    first attempt runs them); then K1 and K2 under the first salt on the
+    packed keys of each attempt, at the residual's geometry and at the
+    plain tier's, held as check_routing holds them where K1 overflows.
+    Returns what it saw."""
+    hinted, cap_rows = skewtier.skew_plan(sk)
+    hk = skewtier.heavy_candidates(sk)
+    for with_pay in (False, True):
+        got = rstats.r_cand_stats_kernel(rk, rp, hk, with_pay)
+        want = rstats.r_cand_stats_plain(rk, rp, hk, with_pay)
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        require(err == 0, f"RSTATS differs from its plain version by {err} "
+                f"at {label} (payload={with_pay})")
+    rcnt, rph = want
+    pres = (hk >= 0) & (rcnt > 0)
+    _, _, sk_res = skewtier.heavy_split_pass(sk, sp, hk, pres, rph)
+    prm = skewtier._skew_prm() if count else rho3.Rho3Params()
+    same = not count and not bool(pres.any())   # the residual is S itself
+    attempts = {"skew and plain tiers" if same else "skew tier":
+                (sk_res, sp, prm)}
+    comp_ovf = None
+    if count and cap_rows:
+        kf = min(1.0, cap_rows * 128 / max(1, sk.numel()))
+        stages, _, _, comp_ovf = compaction_stages(sk_res, sp, kf, cap_rows)
+        for name in ("compact_windows", "scatter_segments"):
+            args, kernel, plain = stages[name]
+            got = flat_outputs(name, kernel(*args))
+            want = flat_outputs(name, plain(*args))
+            torch.cuda.synchronize()
+            if name == "scatter_segments":   # callers drop the last row
+                got, want = [g[:-1] for g in got], [w[:-1] for w in want]
+            err = max_abs_err(got, want)
+            require(err == 0, f"{name} differs from its plain version by "
+                    f"{err} at {label}'s compacted residual")
+        del stages
+        ck, cp, _ = lanecompact.compact_kp_fast(
+            sk_res, sp, cap_rows, pad_key=rho3.PAD_S_INPUT, keep_frac=kf)
+        attempts["compacted-residual tier"] = (ck, cp, prm)
+    if not same:
+        attempts["plain tier"] = (sk, sp, rho3.Rho3Params())
+    ovf = {}
+    for what, (k, p, pm) in attempts.items():
+        packed, _ = rho3.pack_keys(
+            torch.cat([rk, k]),
+            torch.cat([torch.zeros_like(rk), torch.ones_like(k)]),
+            rho3.RETRY_SALTS[0])
+        ovf[what] = check_routing(f"{label}, {what}", packed,
+                                  torch.cat([rp, p]), rho3.default_scale(pm),
+                                  None, None, pm)
+    seen = {"hinted": hinted, "cap_rows": cap_rows,
+            "candidates": int((hk >= 0).sum()),
+            "present": int(pres.sum()), "r_rows": rk.numel(),
+            "r_counted": int(rcnt.sum()), "compaction_overflow": comp_ovf,
+            "k1_k2_overflow": ovf}
+    say(f"TPC-H staged {label} up to its skew tier: RSTATS (keys-only and "
+        f"payload) exact, K1 and K2 equal their plain versions: {seen}")
+    return seen
+
+
+def domain_check_ms(l, o, c) -> dict:
+    """The fused plans' key-domain check (fused._in_domain: one aminmax a
+    column) on fused Q3's and Q12's columns, timed beside the form it
+    replaced (two compares, an and, an all: four passes a column), with
+    its bound (each column read once)."""
+    lim = rho3.MAX_KEY
+    cases = {"Q3": ((c.key, lim), (o.custkey, lim), (o.key, lim),
+                    (l.key, lim)),
+             "Q12": ((o.key, lim), (l.key, lim))}
+
+    def former(pairs):
+        ok = None
+        for key, limit in pairs:
+            inside = ((key >= 0) & (key < limit)).all()
+            ok = inside if ok is None else ok & inside
+        return ok
+
+    out = {}
+    for q, pairs in cases.items():
+        require(bool(fused._in_domain(*pairs)) and bool(former(pairs)),
+                f"fused {q}'s keys lie outside the domain")
+        out[q] = {"ms": cuda_ms(lambda: fused._in_domain(*pairs), TPCH_REPS),
+                  "former_ms": cuda_ms(lambda: former(pairs), TPCH_REPS),
+                  "bound_ms": nbytes(*(k for k, _ in pairs))
+                  / HBM_BYTES_PER_S * 1e3}
+        say(f"TPC-H fused {q}'s domain check: {out[q]['ms']:.3f} ms/call, "
+            f"the former form {out[q]['former_ms']:.3f}, bound "
+            f"{out[q]['bound_ms']:.3f}")
+    return out
+
+
+def tpch_phase(card) -> dict:
+    """Phase 14: the TPC-H layer at SF 10.  dbgen's store written to a
+    temporary directory and loaded onto the card, the eight plans on it
+    and on generate_tpch_tables' SF 10 tables (tpch_run), the cost of the
+    staged plans' pads on one join, and the fused plans' kernels at their
+    TPC-H shapes.  Returns the tpch line."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        tpch_dbgen.generate(TPCH_SCALE, tmp)
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dbgen = (tpch_loader.load_lineitem(tmp, device=DEV),
+                 tpch_loader.load_orders(tmp, device=DEV),
+                 tpch_loader.load_customer(tmp, device=DEV),
+                 tpch_loader.load_part(tmp, device=DEV),
+                 tpch_loader.load_nation(tmp, device=DEV))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    synth = TT.generate_tpch_tables(scale=TPCH_SCALE, device=DEV)
+    torch.cuda.synchronize()
+    synth_s = time.perf_counter() - t0
+    rows = {name: t.num_tuples for name, t in zip(TPCH_NAMES, dbgen)}
+    say(f"TPC-H SF {TPCH_SCALE}: dbgen wrote the store in {gen_s:.2f} s, "
+        f"the loaders put it on the card in {load_s:.2f} s ({rows}); "
+        f"generate_tpch_tables took {synth_s:.2f} s")
+    out = {"card": card, "scale": TPCH_SCALE, "dbgen_s": gen_s,
+           "load_s": load_s, "generate_s": synth_s, "dbgen_rows": rows}
+    for label, tables in (("dbgen", dbgen), ("synthetic", synth)):
+        out[label] = tpch_run(label, tables, card)
+    out["staged_pads"] = staged_pads_cost(dbgen[0], dbgen[1], card)
+    out["domain_check"] = domain_check_ms(*dbgen[:3])
+    check_tpch_kernels(*dbgen[:3])
+    del dbgen, synth
+    torch.cuda.synchronize()
+    return {"tpch": out}
 
 if __name__ == "__main__":
     sys.exit(main())

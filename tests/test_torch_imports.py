@@ -54,7 +54,11 @@ def test_imports_without_jax():
             "aqp_tpu_torch.ops.partition, aqp_tpu_torch.ops.segops, "
             "aqp_tpu_torch.joins.sortmerge, "
             "aqp_tpu_torch.experiments.partition_bench, "
-            "aqp_tpu_torch.experiments.membench; print('ok')")
+            "aqp_tpu_torch.experiments.membench, "
+            "aqp_tpu_torch.queries, aqp_tpu_torch.queries.tables, "
+            "aqp_tpu_torch.queries.filters, aqp_tpu_torch.queries.tpch, "
+            "aqp_tpu_torch.queries.fused, aqp_tpu_torch.data.tpch_dbgen, "
+            "aqp_tpu_torch.data.tpch_loader; print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -104,6 +108,18 @@ def test_entry_points_without_device_raise_when_no_cuda():
         lambda: engine.rho_join_count(*cols),
         lambda: engine.rho_join_materialize_fused(*cols),
         lambda: engine.rho_join_materialize(*cols, 128),
+    ]
+    from aqp_tpu_torch.data import tpch_loader
+    from aqp_tpu_torch.queries import tables
+
+    calls += [
+        lambda: tables.generate_tpch_tables(0.001),
+        lambda: tables.NationTable.from_numpy(
+            {"key": np.arange(25, dtype=np.int32),
+             "rowid": np.arange(25, dtype=np.int32)}),
+        *(lambda f=f: getattr(tpch_loader, f)("no-such-store")
+          for f in ("load_lineitem", "load_orders", "load_customer",
+                    "load_part", "load_nation")),
     ]
     from aqp_tpu_torch.experiments import membench, partition_bench
     from aqp_tpu_torch.ops import aggregate, scan
