@@ -1,7 +1,7 @@
 """Host issue against device time for the calls of RSTATS and the two
 segment scatters, at the main path's shapes, on the card.
 
-    python -m aqp_tpu_torch.experiments.wrapper_split [--reps 5]
+    python -m aqp_tpu_torch.experiments.wrapper_split [--reps 5] [--only LABEL]
 
 For each call: RSTATS keys-only and with payloads over bench.py's R
 (13,107,200 dense keys, seeded random payloads) with the 64 heavy
@@ -18,9 +18,11 @@ rows the skew tier's compaction makes, at its planned capacity):
   call_ms  one call's milliseconds as chip_smoke.py's kernel rows time it
            (CUDA events around `reps` calls after a warm-up).
 
-Prints one JSON line.  It calls only what older checkouts of the package
-also have, so a copy of this file run from the root of such a checkout
-measures that checkout's calls.  A machine without a CUDA card exits 2.
+Prints one JSON line.  `--only LABEL` measures that one call, so that its
+profiler session is the first of a fresh process (in a process that
+profiled before, the profiler drops device records).  It calls only what
+older checkouts of the package also have, so a copy of this file run from
+the root of such a checkout measures that checkout's calls.  A machine without a CUDA card exits 2.
 """
 
 from __future__ import annotations
@@ -39,6 +41,8 @@ from aqp_tpu_torch.ops.kernels import compact, lanecompact, rstats
 NR, NS = 13_107_200, 52_428_800
 W = 512                                # the compaction's window, in rows
 HOST_CALLS = 200
+LABELS = ("RSTATS keys-only", "RSTATS with payloads", "scatter_segments",
+          "scatter_segments_one")
 
 
 def call_ms(fn, reps: int) -> float:
@@ -122,12 +126,15 @@ def calls() -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--only", choices=LABELS, default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("wrapper_split: no CUDA device is available", file=sys.stderr)
         return 2
     out = {"device": torch.cuda.get_device_name(0)}
     for label, fn in calls().items():
+        if args.only not in (None, label):
+            continue
         out[label] = {"ops": device_ops(fn, args.reps),
                       "host_us": host_us(fn),
                       "call_ms": call_ms(fn, args.reps)}

@@ -7,12 +7,39 @@ the CPU.  Throughput follows the reference: M input rows/s =
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import time
 from dataclasses import dataclass, field
 from typing import Dict
 
 import torch
+
+def _tensors(x):
+    """The tensors in x (a tensor, or a list, tuple, dict or dataclass of
+    them, nested), in order."""
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+        for f in dataclasses.fields(x):
+            yield from _tensors(getattr(x, f.name))
+    elif isinstance(x, (list, tuple)):
+        for item in x:
+            yield from _tensors(item)
+    elif isinstance(x, dict):
+        for item in x.values():
+            yield from _tensors(item)
+
+
+def hard_sync(x):
+    """Wait until the device of the first tensor in x has finished its work;
+    on the CPU (or with no tensor in x) nothing to wait for.  Returns x
+    unchanged."""
+    t = next(_tensors(x), None)
+    if t is not None and t.device.type == "cuda":
+        torch.cuda.synchronize(t.device)
+    return x
+
 
 PHASE_KEYS = (
     "total",

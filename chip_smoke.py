@@ -141,7 +141,7 @@ Phases, each printed on one line with its elapsed seconds:
      over the main path 0; each call timed (PSM's three forms beside),
      with the card's name and power limit;
  14. the TPC-H layer at SF 10: data/tpch_dbgen.py writes its store into
-     a temporary directory (removed after the phase) and the loaders put
+     a temporary directory (removed after phase 15) and the loaders put
      the five tables on the card (seconds printed); the four staged plans
      (RHO) and the four fused plans on them and on
      generate_tpch_tables(scale=10)'s tables: every count equal to an
@@ -163,16 +163,40 @@ Phases, each printed on one line with its elapsed seconds:
      B5 and B6a, and K1 and K2 under the first salt on each attempt's
      packed keys, held to their plain versions; the fused plans' key
      domain check timed beside its former form; one {"tpch"...} line;
- 15. after every main path, so that its work does not change the state
+ 15. the entry points at full width, in-process (python -m aqp_tpu_torch's
+     main with its output captured), each CLI call a main path of its
+     own: join -x cache-exceed (bench.py's headline) RHO, RHO -m, PHT and
+     -z 1.5, and -x L (50M x 200M, RHO) once, every answer equal to the
+     exact core on the same seeded relations and -x L's serving rung
+     printed; then K1, K2 and K3 (K3M with payloads) held exactly to
+     their plain versions at -x L's geometry, on its relations' keys
+     with random payloads, keys-only and with payloads; tpch -q
+     3|10|12|19 staged and --fused on phase 14's dbgen store, each count
+     equal to phase 14's oracle; scan in its six modes
+     over 2^28 rows at 10%; matrix RHO, PHT, PSM at the headline, both
+     materialize forms, 3 reps (no error row, matches |S|); join
+     --profile at the headline (0 < device_total_s <= the traced
+     section's wall time; the trace's kernels and calls beside the
+     launchers' counts); K1, K2, K3, K3M, K3TWO, RSTATS, B5, B6a, B6b,
+     B7 and B8 required launched; one {"cli"...} line; then the
+     streaming join: R the headline's 13.1M keys on the card, S 2^29 FK
+     rows from native.gen_fk_host (seconds printed), pinned (halved if
+     the host cannot pin it) and streamed in 2^26-row chunks, (matches,
+     checksum) equal to the exact core on the whole S on the card, the
+     streamed time (best of 3 after a warm-up, host clock to the last
+     sync) below copy alone plus probe alone; one {"streamjoin"...} line;
+ 16. after every main path, so that its work does not change the state
      the timed phases run in: the segment scatters (both) on 3,000 segments in no order
      with gaps, dead segments among them and a cut at out_rows, with no
      live segment and with none at all, every output row compared (the
      kernel writes the fill too): exact equality; then the device
-     operations one call issues, from torch.profiler, with its kernel's
-     device microseconds a launch, added to the kernel rows: RSTATS at
-     phase 11's shapes (at most its output's memset and the kernel) and
-     each scatter at phase 8's (the kernel alone).
-Each of phases 4, 7, 8, 9, 10, 11, 12, 13 and 14 sets the launch counts to 0
+     operations one call issues, from torch.profiler in a fresh process
+     for each call (experiments/wrapper_split.py --only), with its
+     kernel's device microseconds a launch, added to the kernel rows:
+     RSTATS at phase 11's shapes (at most its output's memset and the
+     kernel) and each scatter at phase 8's (the kernel alone); each
+     kernel seen at least once a call.
+Each of phases 4, 7, 8, 9, 10, 11, 12, 13, 14 and 15 sets the launch counts to 0
 just before its main path and reads them just after; a kernel's launches in the
 kernels line are summed over those main paths.  The scale-up column needs 16 GiB
 of device memory (18 GiB with its bitvector).  Then one JSON line with the
@@ -180,12 +204,15 @@ kernels' numbers, and last the result line {"ok": true, "device": {...}}.  Any f
 non-zero; a watchdog ends a run that hangs.
 """
 
+import contextlib
 import faulthandler
 
-faulthandler.dump_traceback_later(420, exit=True)
+faulthandler.dump_traceback_later(600, exit=True)
 
 import functools  # noqa: E402
+import io  # noqa: E402
 import json  # noqa: E402
+import os  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 import tempfile  # noqa: E402
@@ -194,17 +221,20 @@ import time  # noqa: E402
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+import aqp_tpu_torch.__main__ as cli_main  # noqa: E402
 from aqp_tpu_torch.config import JoinConfig  # noqa: E402
 from aqp_tpu_torch.data import (  # noqa: E402
-    create_relation_fk, create_relation_pk, create_relation_zipf,
+    create_relation_fk, create_relation_pk, create_relation_zipf, native,
     tpch_dbgen, tpch_loader)
 from aqp_tpu_torch import engine  # noqa: E402
 from aqp_tpu_torch.experiments import (  # noqa: E402
-    membench, partition_bench, wrapper_split)
+    membench, partition_bench)
 from aqp_tpu_torch.joins import (  # noqa: E402
     cht, crk, skewtier, sortmerge)
 from aqp_tpu_torch.joins.api import run_join  # noqa: E402
-from aqp_tpu_torch.ops import aggregate, mergejoin, scan  # noqa: E402
+from aqp_tpu_torch.harness.runner import CSV_HEADER  # noqa: E402
+from aqp_tpu_torch.ops import (  # noqa: E402
+    aggregate, mergejoin, scan, streamjoin)
 from aqp_tpu_torch.ops.hashing import fib_hash32  # noqa: E402
 from aqp_tpu_torch.ops.kernels import (  # noqa: E402
     aggpipe, blocksort, build, compact, lanecompact, nphj, rho3, rstats)
@@ -213,6 +243,7 @@ from aqp_tpu_torch.queries import filters as F  # noqa: E402
 from aqp_tpu_torch.queries import fused, tpch  # noqa: E402
 from aqp_tpu_torch.queries import tables as TT  # noqa: E402
 from aqp_tpu_torch.relation import Relation  # noqa: E402
+from aqp_tpu_torch.utils import profiler  # noqa: E402
 from aqp_tpu_torch.utils.timing import PhaseTimer  # noqa: E402
 
 NR, NS = 13_107_200, 52_428_800      # bench.py's headline workload
@@ -309,43 +340,53 @@ def kernel_split(fn, reps: int = 5) -> dict:
             for ev in prof.key_averages() if ev.device_time_total > 0}
 
 
-def call_split(name, fn, kernel: str, most_ops: int) -> dict:
+def fresh_device_ops(label: str) -> dict:
+    """wrapper_split's device operations of one call (`label`), measured in
+    a process of its own: in this one, which profiled before, the
+    profiler drops device records."""
+    run = subprocess.run(
+        [sys.executable, "-m", "aqp_tpu_torch.experiments.wrapper_split",
+         "--only", label, "--reps", str(REPS)], capture_output=True,
+        text=True, timeout=240, cwd=os.path.dirname(os.path.abspath(
+            __file__)))
+    require(run.returncode == 0, f"wrapper_split --only {label!r} exited "
+            f"{run.returncode}: {run.stderr[-2000:]}")
+    return json.loads(run.stdout.strip().splitlines()[-1])[label]["ops"]
+
+
+def call_split(name, ops: dict, kernel: str, most_ops: int) -> dict:
     """A wrapper's device operations a call (at most `most_ops`, the
-    design's) and its kernel's own device microseconds a launch, from
-    torch.profiler (wrapper_split.device_ops)."""
-    ops = wrapper_split.device_ops(fn, REPS)
+    design's, and its kernel at least once) and its kernel's own device
+    microseconds a launch, from wrapper_split's torch.profiler count."""
     n_ops = sum(v["per_call"] for v in ops.values())
-    mine = [v["us_each"] for k, v in ops.items() if kernel in k]
+    mine = [v for k, v in ops.items() if kernel in k]
+    require(mine and mine[0]["per_call"] >= 1, f"{name}: the profiler shows "
+            f"{kernel} less than once a call: {ops}")
     require(n_ops <= most_ops, f"{name} issues {n_ops} device operations a "
             f"call, more than {most_ops}: {ops}")
-    return {"device_ops_per_call": n_ops,
-            "kernel_us": mine[0] if mine else "not measured",
+    return {"device_ops_per_call": n_ops, "kernel_us": mine[0]["us_each"],
             "device_ops": ops}
 
 
-def device_op_checks(relR, rows) -> None:
-    """Phase 15, after every main path (so that its checks and profiler
+def device_op_checks(rows) -> None:
+    """Phase 16, after every main path (so that its checks and profiler
     sessions do not change the state the timed phases run in): the
     segment scatters on scatter_cases, then the device operations one
-    call issues, RSTATS at phase 11's shapes (at most the output's memset
-    and the kernel) and each scatter at phase 8's (the kernel alone), with
-    the kernel's device microseconds, into their kernel rows."""
+    call issues, each counted in a fresh process (fresh_device_ops),
+    RSTATS at phase 11's shapes (at most the output's memset and the
+    kernel) and each scatter at phase 8's (the kernel alone), with the
+    kernel's device microseconds, into their kernel rows."""
     check_scatter_cases()
-    zs = create_relation_zipf(NS, NR, 1.5, seed=22222, random_payload=True,
-                              device=DEV)
-    _, cap = skewtier.skew_plan(zs.key)
-    hk = skewtier.heavy_candidates(zs.key)
-    stages = residual_stages(relR, zs, cap)[0]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     splits = {}
-    for with_pay in (True, False):
+    for with_pay, label in ((True, "RSTATS with payloads"),
+                            (False, "RSTATS keys-only")):
         splits[("RSTATS", with_pay)] = call_split(
-            "RSTATS", lambda: rstats.r_cand_stats_kernel(
-                relR.key, relR.payload, hk, with_pay), "rstats_kernel", 2)
+            "RSTATS", fresh_device_ops(label), "rstats_kernel", 2)
     for name in ("scatter_segments", "scatter_segments_one"):
-        args, kernel, _ = stages[name]
-        splits[(name, True)] = call_split(name, lambda: kernel(*args),
+        splits[(name, True)] = call_split(name, fresh_device_ops(name),
                                           "scatter_kernel", 1)
-    del zs, stages
     for (name, with_pay), split in splits.items():
         (rows[name] if with_pay else rows[name]["keys_only"]).update(split)
         say(f"{name}{'' if with_pay else ' keys-only'}: "
@@ -479,9 +520,12 @@ def check_subrange(name, label, args) -> tuple:
 
 
 def check_kernels(rk, rp, sk, sp, prm, with_payload, label, salt=rho3.HASH_C,
-                  scale=None) -> int:
+                  scale=None, errs=None) -> int:
     """Each kernel equals its plain version exactly on the same inputs (K3M
-    with payloads).  Returns the sub-ranges K3 halved."""
+    with payloads).  Returns the sub-ranges K3 halved; each kernel's
+    max_abs_err goes into `errs` where one is given."""
+    errs = {} if errs is None else errs
+    mode = "payload" if with_payload else "keys-only"
     alias, stages = stage_inputs(rk, rp, sk, sp, prm, with_payload, salt,
                                  scale)
     require(alias == 0, "pack_keys reported an alias")
@@ -494,12 +538,12 @@ def check_kernels(rk, rp, sk, sp, prm, with_payload, label, salt=rho3.HASH_C,
         err = max_abs_err(got, want)
         require(err == 0, f"{name} differs from its plain version by {err}"
                 f" ({prm}, payload={with_payload})")
-    halved, _ = check_subrange(
-        "K3", f"{label}, {'payload' if with_payload else 'keys-only'}",
-        stages["K3"][0])
+        errs[f"{name} {mode}"] = err
+    halved, errs[f"K3 {mode}"] = check_subrange(
+        "K3", f"{label}, {mode}", stages["K3"][0])
     if with_payload:
-        m_halved, _ = check_subrange("K3M", label,
-                                  (*stages["K3"][0], rho3._modinv_pow2(salt)))
+        m_halved, errs["K3M"] = check_subrange(
+            "K3M", label, (*stages["K3"][0], rho3._modinv_pow2(salt)))
         require(m_halved == halved, f"K3M halved {m_halved} sub-ranges, K3 "
                 f"{halved} ({label})")
     return halved
@@ -1275,11 +1319,20 @@ def main() -> int:
     torch.cuda.synchronize()
     # 13. the seven join names left (plain PyTorch), on phase 4's relations
     print(json.dumps(families_phase(relR, relS, card)), flush=True)
-    # 14. the TPC-H layer at SF 10: the dbgen store and synthetic tables
-    print(json.dumps(tpch_phase(card)), flush=True)
-    # 15. after every main path: the scatters' full-size cases and the
+    with tempfile.TemporaryDirectory() as store:
+        # 14. the TPC-H layer at SF 10: the dbgen store and synthetic
+        # tables
+        tpch_out = tpch_phase(card, store)
+        print(json.dumps(tpch_out), flush=True)
+        del relS
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        # 15. the entry points: the CLI, the harness, the profiler and the
+        # streaming join, on the dbgen store before it is removed
+        entry_phase(card, store, tpch_out["tpch"]["dbgen"]["oracle"])
+    # 16. after every main path: the scatters' full-size cases and the
     # device operations of one RSTATS or scatter call
-    device_op_checks(relR, rows)
+    device_op_checks(rows)
     say(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         " GiB")
     # each kernel's launches over every phase's main path (K1 and K2 run in
@@ -3397,24 +3450,24 @@ def domain_check_ms(l, o, c) -> dict:
     return out
 
 
-def tpch_phase(card) -> dict:
-    """Phase 14: the TPC-H layer at SF 10.  dbgen's store written to a
-    temporary directory and loaded onto the card, the eight plans on it
-    and on generate_tpch_tables' SF 10 tables (tpch_run), the cost of the
-    staged plans' pads on one join, and the fused plans' kernels at their
-    TPC-H shapes.  Returns the tpch line."""
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        tpch_dbgen.generate(TPCH_SCALE, tmp)
-        gen_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        dbgen = (tpch_loader.load_lineitem(tmp, device=DEV),
-                 tpch_loader.load_orders(tmp, device=DEV),
-                 tpch_loader.load_customer(tmp, device=DEV),
-                 tpch_loader.load_part(tmp, device=DEV),
-                 tpch_loader.load_nation(tmp, device=DEV))
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
+def tpch_phase(card, store) -> dict:
+    """Phase 14: the TPC-H layer at SF 10.  dbgen's store written to the
+    temporary directory `store` (phase 15 reads it too) and loaded onto
+    the card, the eight plans on it and on generate_tpch_tables' SF 10
+    tables (tpch_run), the cost of the staged plans' pads on one join, and
+    the fused plans' kernels at their TPC-H shapes.  Returns the tpch
+    line."""
+    t0 = time.perf_counter()
+    tpch_dbgen.generate(TPCH_SCALE, store)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dbgen = (tpch_loader.load_lineitem(store, device=DEV),
+             tpch_loader.load_orders(store, device=DEV),
+             tpch_loader.load_customer(store, device=DEV),
+             tpch_loader.load_part(store, device=DEV),
+             tpch_loader.load_nation(store, device=DEV))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     synth = TT.generate_tpch_tables(scale=TPCH_SCALE, device=DEV)
     torch.cuda.synchronize()
@@ -3433,6 +3486,379 @@ def tpch_phase(card) -> dict:
     del dbgen, synth
     torch.cuda.synchronize()
     return {"tpch": out}
+
+
+# Phase 15: the entry points at full width
+CLI_X = "cache-exceed"               # bench.py's headline, through -x
+CLI_SCAN_ROWS = 1 << 28
+CLI_REPS = 3
+STREAM_ROWS = 1 << 29                # 4 GiB of S keys and payloads
+STREAM_CHUNK = 1 << 26
+CLI_SEEDS = (11111, 22222)           # the CLI's --seed-r / --seed-s
+
+
+def cli(argv) -> tuple:
+    """(stdout, wall seconds) of `python -m aqp_tpu_torch argv`, run
+    in-process; the device is waited for at the end."""
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli_main.main([str(a) for a in argv])
+    torch.cuda.synchronize()
+    return buf.getvalue(), time.perf_counter() - t0
+
+
+def cli_tuples(out: str) -> int:
+    lines = [ln for ln in out.splitlines() if ln.startswith("Result tuples")]
+    require(len(lines) == 1, f"the CLI printed no contract: {out!r}")
+    return int(lines[0].split(": ")[1])
+
+
+def cli_json(out: str) -> dict:
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def cli_exact(nr, ns, z=None) -> tuple:
+    """(the exact core's matches, skew_plan) on the CLI's seeded
+    relations."""
+    r = create_relation_pk(nr, seed=CLI_SEEDS[0], device=DEV)
+    s = (create_relation_zipf(ns, nr, z, seed=CLI_SEEDS[1], device=DEV)
+         if z else create_relation_fk(ns, nr, seed=CLI_SEEDS[1], device=DEV))
+    m = int(mergejoin.merge_join_count(r.key, r.payload, s.key,
+                                       s.payload).matches)
+    plan = skewtier.skew_plan(s.key)
+    del r, s
+    torch.cuda.empty_cache()
+    return m, plan
+
+
+def cli_run(label, argv, out_rows) -> tuple:
+    """One CLI call as a main path of its own: launches reset before and
+    read after.  Returns (stdout, launches)."""
+    reset_launches()
+    out, secs = cli(argv)
+    launches = main_path_launches(f"15 CLI {label}")
+    out_rows[label] = {"argv": " ".join(map(str, argv)), "wall_s": secs,
+                       "launched": {k: v for k, v in launches.items() if v}}
+    say(f"CLI {label}: {secs:.2f} s, launches "
+        f"{out_rows[label]['launched']}")
+    return out, launches
+
+
+def need_launched(label, launches, names) -> None:
+    missing = [k for k in names if launches[k] == 0]
+    require(not missing, f"CLI {label} launched no {missing}")
+
+
+def cli_joins(card, out) -> None:
+    """join at bench.py's headline (-x cache-exceed): RHO, RHO -m, PHT and
+    -z 1.5; then -x L (RHO) once.  Every answer equal to the exact core
+    on the same seeded relations."""
+    nr, ns = cli_main._dataset_sizes(CLI_X)
+    require((nr, ns) == (NR, NS), f"-x {CLI_X} is {nr} x {ns}")
+    exact_fk, _ = cli_exact(nr, ns)
+    require(exact_fk == ns, "exact core: FK matches != |S|")
+    exact_z, _ = cli_exact(nr, ns, 1.5)
+    runs = {"join RHO": ([], exact_fk, ("K1", "K2", "K3")),
+            "join RHO -m": (["-m"], exact_fk, ("K1", "K2", "K3M")),
+            "join PHT": (["-a", "PHT"], exact_fk, ("K1", "K2", "K3TWO")),
+            "join -z 1.5": (["-z", 1.5], exact_z,
+                            ("RSTATS", "compact_windows",
+                             "scatter_segments"))}
+    for label, (extra, want, kernels) in runs.items():
+        stdout, launches = cli_run(label, ["join", "-x", CLI_X, "--reps",
+                                           CLI_REPS, "--quiet", *extra],
+                                   out)
+        got = cli_tuples(stdout)
+        j = cli_json(stdout)
+        require(got == j["matches"] == want, f"CLI {label}: {got} result "
+                f"tuples, the exact core {want}")
+        need_launched(label, launches, kernels)
+        out[label].update(matches=got, best_total_s=j["phases"]["total"],
+                          mrows_per_s=j["mrows_per_s"])
+        say(f"CLI {label}: {got} tuples (= exact core), best "
+            f"{j['phases']['total'] * 1e3:.3f} ms, "
+            f"{j['mrows_per_s']:.1f} M rows/s ({card})")
+    # -x L: 50M x 200M, once
+    lr, ls = cli_main._dataset_sizes("L")
+    stdout, launches = cli_run("join -x L", ["join", "-x", "L", "--reps", 1,
+                                             "--quiet"], out)
+    want, plan = cli_exact(lr, ls)
+    got = cli_tuples(stdout)
+    j = cli_json(stdout)
+    require(got == want == ls, f"CLI join -x L: {got} result tuples, the "
+            f"exact core {want}, |S| {ls}")
+    rung = tier_name(plan[0], plan[1], launches["K3"])
+    out["join -x L"].update(matches=got, total_s=j["phases"]["total"],
+                            mrows_per_s=j["mrows_per_s"],
+                            pipeline_runs=launches["K3"], serving_rung=rung,
+                            max_abs_err=check_x_l_kernels(lr, ls))
+    say(f"CLI join -x L ({lr} x {ls}): {got} tuples (= exact core), "
+        f"{j['phases']['total'] * 1e3:.3f} ms, {j['mrows_per_s']:.1f} M "
+        f"rows/s; {launches['K3']} pipeline runs, served by: {rung} "
+        f"({card})")
+
+
+def check_x_l_kernels(nr, ns) -> dict:
+    """K1, K2 and K3 (K3M with payloads) held exactly to their plain
+    versions at -x L's geometry (the plain rung's Rho3Params()): the CLI's
+    seeded keys with random payloads (drawn after the keys, so the keys
+    are the CLI's), keys-only and with payloads.  Returns each kernel's
+    max_abs_err."""
+    r = create_relation_pk(nr, seed=CLI_SEEDS[0], random_payload=True,
+                           device=DEV)
+    s = create_relation_fk(ns, nr, seed=CLI_SEEDS[1], random_payload=True,
+                           device=DEV)
+    errs = {}
+    for with_payload in (False, True):
+        check_kernels(r.key, r.payload, s.key, s.payload, rho3.Rho3Params(),
+                      with_payload, "-x L", errs=errs)
+    del r, s
+    torch.cuda.empty_cache()
+    say(f"CLI join -x L: K1, K2, K3 and K3M equal their plain versions at "
+        f"{nr} x {ns}, max_abs_err {errs}")
+    return errs
+
+
+def cli_tpch(card, store, oracle, out) -> None:
+    """tpch -q 3|10|12|19 on the dbgen store, staged and fused: each count
+    equal to phase 14's oracle; the fused plans launch B5, B6a/B6b and
+    K3M."""
+    fused_launches = {}
+    for form in ("staged", "fused"):
+        for q in (3, 10, 12, 19):
+            label = f"tpch Q{q} {form}"
+            stdout, launches = cli_run(
+                label, ["tpch", "-q", q, "--data", store, "--scale",
+                        TPCH_SCALE, "--reps", CLI_REPS]
+                + (["--fused"] if form == "fused" else []), out)
+            got = cli_tuples(stdout)
+            require(got == oracle[f"Q{q}"], f"CLI {label}: {got} result "
+                    f"tuples, phase 14's oracle {oracle[f'Q{q}']}")
+            j = cli_json(stdout)
+            out[label].update(matches=got, best_total_s=j["phases"]["total"],
+                              mrows_per_s=j["mrows_per_s"])
+            if form == "fused":
+                for k, v in launches.items():
+                    fused_launches[k] = fused_launches.get(k, 0) + v
+            say(f"CLI {label}: {got} tuples (= oracle), best "
+                f"{j['phases']['total'] * 1e3:.3f} ms ({card})")
+    need_launched("tpch --fused", fused_launches,
+                  ("compact_windows", "scatter_segments",
+                   "scatter_segments_one", "K3M"))
+
+
+def cli_scans(card, out) -> None:
+    """scan in its six modes over 2^28 rows at 10%; count and sum launch
+    B7, bitvector B8."""
+    for mode in ("count", "sum", "bitvector", "index", "values", "dict"):
+        label = f"scan {mode}"
+        stdout, launches = cli_run(label, [
+            "scan", "--mode", mode, "--rows", CLI_SCAN_ROWS,
+            "--selectivity", 10, "--reps", 5], out)
+        j = cli_json(stdout)
+        require(j["rows"] == CLI_SCAN_ROWS and j["mode"] == mode,
+                f"CLI {label}: {j}")
+        kernel = {"count": "scan_count", "sum": "scan_sum",
+                  "bitvector": "scan_bitvector"}.get(mode)
+        if kernel:
+            need_launched(label, launches, (kernel,))
+        out[label].update(seconds=j["seconds"], gb_per_s=j["gb_per_s"])
+        say(f"CLI {label}: {j['seconds'] * 1e3:.3f} ms, {j['gb_per_s']} "
+            f"GB/s ({card})")
+
+
+def cli_matrix(card, out) -> None:
+    """matrix RHO, PHT, PSM at the headline, both materialize forms, 3
+    reps: no error row, every matches |S|."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/matrix.csv"
+        cli_run("matrix", ["matrix", "--algs", "RHO,PHT,PSM", "--sizes",
+                           f"{NR}x{NS}", "--materialize", "both", "--reps",
+                           CLI_REPS, "--csv", path], out)
+        with open(path) as fh:
+            lines = fh.read().splitlines()
+    require(lines[0] == CSV_HEADER, f"matrix header {lines[0]!r}")
+    rows = [ln.split(",") for ln in lines[1:]]
+    require(not [r for r in rows if r[8] == "error"],
+            "the matrix has an error row")
+    matches = [float(r[9]) for r in rows if r[8] == "matches"]
+    require(len(matches) == 3 * 2 * CLI_REPS and set(matches) == {float(NS)},
+            f"matrix matches {matches}")
+    total = {}
+    for r in rows:
+        if r[8] == "phase_total_s":
+            total.setdefault(f"{r[1]} m={r[2]}", []).append(float(r[9]))
+    out["matrix"].update(rows=len(rows), total_s=total)
+    say(f"CLI matrix: {len(rows)} rows, no error, matches |S| everywhere; "
+        f"phase_total_s {total} ({card})")
+
+
+def trace_wall_s(path: str) -> float:
+    """The profiled section's wall seconds: the span of the trace's
+    events (the profiler's own window event included)."""
+    with open(path) as fh:
+        events = [e for e in json.load(fh)["traceEvents"]
+                  if e.get("ph") == "X"]
+    lo = min(float(e["ts"]) for e in events)
+    hi = max(float(e["ts"]) + float(e.get("dur", 0)) for e in events)
+    return (hi - lo) * 1e-6
+
+
+def cli_profile(card, out) -> None:
+    """join --profile at the headline: the trace exists, 0 <
+    device_total_s <= the section's wall time; its kernels' calls printed
+    beside the launchers' counts."""
+    with tempfile.TemporaryDirectory() as tmp:
+        stdout, launches = cli_run("join --profile", [
+            "join", "-x", CLI_X, "--reps", CLI_REPS, "--quiet",
+            "--profile", tmp], out)
+        j = cli_json(stdout)
+        rep = profiler.parse_trace(tmp)
+        require(rep.trace_path is not None, "--profile wrote no trace")
+        wall = trace_wall_s(rep.trace_path)
+    require(j["profile_dir"] == tmp and "device_total_s" in j,
+            f"--profile JSON {j}")
+    require(0 < rep.device_total_s <= wall, f"device_total_s "
+            f"{rep.device_total_s} outside (0, {wall}]")
+    require(cli_tuples(stdout) == NS, "CLI join --profile: tuples != |S|")
+    calls = {k: v for k, v in rep.per_program_calls.items()}
+    out["join --profile"].update(
+        device_total_s=rep.device_total_s, host_total_s=rep.host_total_s,
+        section_wall_s=wall, device_share=rep.device_total_s / wall,
+        trace_kernel_calls=calls,
+        trace_kernel_s={k: v for k, v in rep.per_program_s.items()})
+    say(f"CLI join --profile: device busy {rep.device_total_s * 1e3:.3f} ms "
+        f"of the section's {wall * 1e3:.3f} ms ({rep.device_total_s / wall:.1%}"
+        f"; idle {1 - rep.device_total_s / wall:.1%}), host "
+        f"{rep.host_total_s * 1e3:.3f} ms ({card})")
+    say("CLI join --profile: kernels in the trace (name: calls) "
+        f"{json.dumps(calls)}; the launchers' counts "
+        f"{out['join --profile']['launched']}")
+
+
+def pinned_s(n: int, seed: int):
+    """(key, payload, native seconds): S's keys from native.gen_fk_host
+    over R's NR keys and random payloads, in pinned host memory."""
+    t0 = time.perf_counter()
+    keys = native.gen_fk_host(n, NR, seed=seed)
+    gen_s = time.perf_counter() - t0
+    key_h = torch.empty(n, dtype=torch.int32, pin_memory=True)
+    pay_h = torch.empty(n, dtype=torch.int32, pin_memory=True)
+    key_h.copy_(torch.from_numpy(keys))
+    del keys
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    for lo in range(0, n, STREAM_CHUNK):
+        m = min(STREAM_CHUNK, n - lo)
+        pay_h[lo:lo + m].copy_(torch.randint(
+            -(1 << 31), 1 << 31, (m,), generator=gen, dtype=torch.int64,
+            device=DEV).int())
+    return key_h, pay_h, gen_s
+
+
+def stream_phase(card) -> dict:
+    """The streaming join: R = the headline's 13.1M dense-PK relation on
+    the card, S = 2^29 FK rows on the host (native.gen_fk_host), pinned
+    and streamed in 2^26-row chunks.  (matches, checksum) equal to the
+    exact core on the whole S on the card; the streamed time below the
+    copies' alone plus the probes' alone."""
+    relR = create_relation_pk(NR, seed=CLI_SEEDS[0], random_payload=True,
+                              device=DEV)
+    n, why = STREAM_ROWS, None
+    while True:
+        try:
+            key_h, pay_h, gen_s = pinned_s(n, CLI_SEEDS[1])
+            break
+        except RuntimeError as e:          # the host could not pin S
+            if n <= STREAM_CHUNK:
+                raise
+            why = f"{n} rows could not be pinned: {e}"
+            n //= 2
+            say(f"streamjoin: {why}; halving S")
+    say(f"streamjoin: native.gen_fk_host made {n} rows in {gen_s:.3f} s")
+    byts = 2 * 4 * n
+
+    def chunks():
+        return streamjoin.chunk_host_relation(key_h, pay_h, STREAM_CHUNK)
+
+    # the exact core on the whole S, on the card in one piece
+    sk, sp = key_h.to(DEV), pay_h.to(DEV)
+    ex = mergejoin.merge_join_count(relR.key, relR.payload, sk, sp)
+    want = (int(ex.matches), int(ex.checksum))
+    require(want[0] == n, f"exact core: {want[0]} matches, |S| {n}")
+    got = streamjoin.streaming_join_count(relR, chunks(), device=DEV)
+    require(got == want, f"streamjoin {got} != the exact core's {want}")
+
+    def streamed():
+        return streamjoin.streaming_join_count(relR, chunks(), device=DEV)
+
+    def copy_alone():
+        bufs = [torch.empty(STREAM_CHUNK, dtype=torch.int32, device=DEV)
+                for _ in range(4)]
+        for i, (k, p) in enumerate(chunks()):
+            bufs[2 * (i % 2)][:k.numel()].copy_(k, non_blocking=True)
+            bufs[2 * (i % 2) + 1][:p.numel()].copy_(p, non_blocking=True)
+
+    def probe_alone():
+        rk, rp = streamjoin.build_sorted(relR.key, relR.payload)
+        total = torch.zeros((), dtype=torch.int64, device=DEV)
+        for lo in range(0, n, STREAM_CHUNK):
+            m, _ = streamjoin.probe_chunk(rk, rp, sk[lo:lo + STREAM_CHUNK],
+                                          sp[lo:lo + STREAM_CHUNK])
+            total += m
+        return total
+
+    times = {}
+    for label, fn in (("streamed", streamed), ("copy alone", copy_alone),
+                      ("probe alone", probe_alone)):
+        fn()
+        best = float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        times[label] = best
+    del sk, sp, relR, key_h, pay_h
+    torch.cuda.empty_cache()
+    overlap = times["copy alone"] + times["probe alone"]
+    require(times["streamed"] < overlap, f"streamed {times['streamed']:.4f}"
+            f" s is not below copy alone + probe alone {overlap:.4f} s")
+    out = {"card": card, "rows": n, "chunk_rows": STREAM_CHUNK,
+           "bytes": byts, "halved_because": why, "native_gen_s": gen_s,
+           "matches": got[0], "checksum": got[1],
+           "streamed_s": times["streamed"],
+           "copy_alone_s": times["copy alone"],
+           "probe_alone_s": times["probe alone"],
+           "host_gb_per_s": byts / times["streamed"] / 1e9,
+           "copy_gb_per_s": byts / times["copy alone"] / 1e9}
+    say(f"streamjoin: {n} rows in {n // STREAM_CHUNK} chunks, (matches, "
+        f"checksum) = {got} (= exact core); streamed "
+        f"{times['streamed'] * 1e3:.3f} ms ({out['host_gb_per_s']:.2f} GB/s "
+        f"from the host), copy alone {times['copy alone'] * 1e3:.3f} ms "
+        f"({out['copy_gb_per_s']:.2f} GB/s), probe alone "
+        f"{times['probe alone'] * 1e3:.3f} ms ({card})")
+    return out
+
+
+def entry_phase(card, store, oracle) -> None:
+    """Phase 15: the entry points at full width, in-process: the CLI's
+    join (headline RHO, RHO -m, PHT, -z 1.5; -x L), tpch (the dbgen
+    store, staged and fused), scan (six modes, 2^28 rows), matrix and
+    join --profile; then the streaming join."""
+    out = {}
+    cli_joins(card, out)
+    cli_tpch(card, store, oracle, out)
+    cli_scans(card, out)
+    cli_matrix(card, out)
+    cli_profile(card, out)
+    print(json.dumps({"cli": out}), flush=True)
+    reset_launches()
+    stream = stream_phase(card)
+    main_path_launches("15 streamjoin")
+    print(json.dumps({"streamjoin": stream}), flush=True)
 
 if __name__ == "__main__":
     sys.exit(main())

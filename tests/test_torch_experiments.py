@@ -89,6 +89,7 @@ def test_wrapper_split_calls_on_small_inputs_and_needs_a_card(monkeypatch):
     got = ws.calls()
     assert list(got) == ["RSTATS keys-only", "RSTATS with payloads",
                          "scatter_segments", "scatter_segments_one"]
+    assert tuple(got) == ws.LABELS
     cnt, pay = got["RSTATS with payloads"]()
     assert cnt.shape == pay.shape == (64,) and int(cnt.sum()) > 0
     assert not got["RSTATS keys-only"]()[1].any()

@@ -58,7 +58,12 @@ def test_imports_without_jax():
             "aqp_tpu_torch.queries, aqp_tpu_torch.queries.tables, "
             "aqp_tpu_torch.queries.filters, aqp_tpu_torch.queries.tpch, "
             "aqp_tpu_torch.queries.fused, aqp_tpu_torch.data.tpch_dbgen, "
-            "aqp_tpu_torch.data.tpch_loader; print('ok')")
+            "aqp_tpu_torch.data.tpch_loader, aqp_tpu_torch.__main__, "
+            "aqp_tpu_torch.harness, aqp_tpu_torch.harness.runner, "
+            "aqp_tpu_torch.utils, aqp_tpu_torch.utils.logging, "
+            "aqp_tpu_torch.utils.profiler, aqp_tpu_torch.utils.timing, "
+            "aqp_tpu_torch.data.native, aqp_tpu_torch.ops.streamjoin; "
+            "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
@@ -148,6 +153,18 @@ def test_entry_points_without_device_raise_when_no_cuda():
         lambda: aggpipe.groupby_aggregate_routed_auto(r.key, r.payload, 8),
         lambda: partition_bench.main(["--small"]),
         lambda: membench.main(["--small"]),
+    ]
+    from aqp_tpu_torch.__main__ import main as cli_main
+    from aqp_tpu_torch.harness import (ExperimentConfig, run_experiments,
+                                       run_experiments_pipelined)
+    from aqp_tpu_torch.ops.streamjoin import streaming_join_count
+
+    calls += [
+        lambda: streaming_join_count(r, []),
+        lambda: cli_main(["join", "-r", "16", "-s", "64"]),
+        lambda: run_experiments(ExperimentConfig(sizes=((16, 64),))),
+        lambda: run_experiments_pipelined(ExperimentConfig(
+            sizes=((16, 64),))),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
