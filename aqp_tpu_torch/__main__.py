@@ -16,7 +16,8 @@ one JSON line with the reference's keys; `scan` the JSON line alone;
 torch.profiler and adds `device_total_s` and `profile_dir` to the JSON
 line.  Every subcommand runs on `--device` (default cuda, which needs a
 CUDA device; `--device cpu` runs the kernels' plain versions on the CPU).
-`--key64` exits with a message: 64-bit keys are not ported (ROADMAP A5).
+`join --key64` draws R and S as int64 (the reference's KEY_8B), which every
+join name serves without a kernel.
 """
 
 from __future__ import annotations
@@ -75,22 +76,25 @@ def cmd_join(args, dev):
     from aqp_tpu_torch.utils.timing import hard_sync
 
     nr, ns = (args.r, args.s) if args.x is None else _dataset_sizes(args.x)
-    relR = create_relation_pk(nr, seed=args.seed_r, device=dev)
-    if args.z:
-        relS = create_relation_zipf(ns, nr, args.z, seed=args.seed_s,
-                                    device=dev)
-    elif args.l is not None:
-        relS = create_relation_fk_sel(ns, nr, args.l, seed=args.seed_s,
-                                      device=dev)
-    else:
-        relS = create_relation_fk(ns, nr, seed=args.seed_s, device=dev)
-    hard_sync((relR.key, relS.key))
     cfg = JoinConfig(
         materialize=args.m,
         radix_bits=args.radix_bits,
         passes=args.passes,
         use_pallas=not args.no_pallas,
+        key64=args.key64,
     )
+    dtype = cfg.key_dtype
+    relR = create_relation_pk(nr, seed=args.seed_r, dtype=dtype, device=dev)
+    if args.z:
+        relS = create_relation_zipf(ns, nr, args.z, seed=args.seed_s,
+                                    dtype=dtype, device=dev)
+    elif args.l is not None:
+        relS = create_relation_fk_sel(ns, nr, args.l, seed=args.seed_s,
+                                      dtype=dtype, device=dev)
+    else:
+        relS = create_relation_fk(ns, nr, seed=args.seed_s, dtype=dtype,
+                                  device=dev)
+    hard_sync((relR.key, relS.key))
     best = None
     ctx, logdir = _profile_ctx(args, dev)
     with ctx:
@@ -265,7 +269,7 @@ def main(argv=None):
     j.add_argument("--no-pallas", action="store_true",
                    help="no kernel pipeline (RHO: the radix frame)")
     j.add_argument("--key64", action="store_true",
-                   help="64-bit keys (KEY_8B analog; not ported: exits)")
+                   help="64-bit keys and payloads (KEY_8B analog)")
     j.add_argument("--reps", type=int, default=3)
     j.add_argument("--seed-r", type=int, default=11111)
     j.add_argument("--seed-s", type=int, default=22222)
@@ -312,10 +316,6 @@ def main(argv=None):
     m.set_defaults(fn=cmd_matrix)
 
     args = p.parse_args(argv)
-    if getattr(args, "key64", False):
-        from aqp_tpu_torch.harness.runner import KEY64_MISSING
-
-        raise SystemExit(f"--key64: {KEY64_MISSING}")
     from aqp_tpu_torch import resolve_device
 
     args.fn(args, resolve_device(args.device))

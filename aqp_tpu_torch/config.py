@@ -27,7 +27,9 @@ class JoinConfig:
     passes: Optional[int] = None
     # Materialize (key, r_payload, s_payload).
     materialize: bool = False
-    # 64-bit keys and payloads.  Not ported yet: key_dtype raises.
+    # 64-bit keys and payloads (the reference's KEY_8B): key_dtype, the
+    # dtype the CLI and the harness draw relations in.  The joins route by the keys' dtype, whatever this says: an
+    # int64 key reaches no kernel (joins/radix.is_key64).
     key64: bool = False
     # Load factor of the no-partition joins' staged open-addressing table
     # (joins/nopart.table_bits_for; use_pallas=False or profile_phases).
@@ -54,9 +56,7 @@ class JoinConfig:
 
     @property
     def key_dtype(self) -> torch.dtype:
-        if self.key64:
-            raise NotImplementedError("key64 is not ported yet")
-        return torch.int32
+        return torch.int64 if self.key64 else torch.int32
 
     def replace(self, **kw) -> "JoinConfig":
         return dataclasses.replace(self, **kw)

@@ -20,6 +20,8 @@ import os
 import time
 from typing import Dict, Iterable, List, Optional, Sequence
 
+import torch
+
 from aqp_tpu_torch import resolve_device
 from aqp_tpu_torch.config import JoinConfig
 from aqp_tpu_torch.data import (
@@ -38,9 +40,6 @@ log = get_logger("aqp_tpu_torch.harness")
 CSV_HEADER = (
     "backend,alg,materialize,size_r,size_s,skew,selectivity,rep,measurement,value"
 )
-
-KEY64_MISSING = ("key64 is not ported to aqp_tpu_torch (ROADMAP A5): "
-                 "64-bit keys are refused rather than truncated to int32")
 
 
 @dataclasses.dataclass
@@ -64,17 +63,13 @@ class ExperimentConfig:
     # alias each relation's payload to its key (keys-only runs never read
     # payloads; halves the device memory of a large matrix)
     alias_payloads: bool = False
-    # 8-byte keys: not ported (ROADMAP A5); True raises at once instead of
-    # running int32 keys under a key64 label
+    # run the matrix with 8-byte keys (the reference's KEY_8B): int64
+    # relations, which every engine serves without a kernel
     key64: bool = False
     # the reference-equivalent count configuration: no payload checksum
     checksum: bool = False
     # where the matrix runs; "cuda" needs a CUDA device
     device: str = "cuda"
-
-    def __post_init__(self):
-        if self.key64:
-            raise NotImplementedError(KEY64_MISSING)
 
     def enumerate(self):
         return itertools.product(
@@ -84,8 +79,12 @@ class ExperimentConfig:
 
 
 def _gen_workload(size_r, size_s, skew, selectivity, seed_r, seed_s,
-                  alias_payloads=False, device="cuda"):
-    relR = create_relation_pk(size_r, seed=seed_r, device=device)
+                  alias_payloads=False, device="cuda", key64=False):
+    """The matrix's relations; with key64, pk and fk are drawn as int64 and
+    zipf and fk_sel cast to it, as in the reference."""
+    dtype = JoinConfig(key64=key64).key_dtype
+    relR = create_relation_pk(size_r, seed=seed_r, dtype=dtype,
+                              device=device)
     if skew is not None:
         relS = create_relation_zipf(size_s, size_r, skew, seed=seed_s,
                                     device=device)
@@ -93,7 +92,10 @@ def _gen_workload(size_r, size_s, skew, selectivity, seed_r, seed_s,
         relS = create_relation_fk_sel(size_s, size_r, selectivity,
                                       seed=seed_s, device=device)
     else:
-        relS = create_relation_fk(size_s, size_r, seed=seed_s, device=device)
+        relS = create_relation_fk(size_s, size_r, seed=seed_s, dtype=dtype,
+                                  device=device)
+    if key64 and relS.key.dtype != torch.int64:
+        relS = Relation(relS.key.long(), relS.payload.long())
     if alias_payloads:
         relR = Relation(relR.key, relR.key)
         relS = Relation(relS.key, relS.key)
@@ -115,9 +117,11 @@ def run_experiments(cfg: ExperimentConfig,
         if wkey not in cache:
             cache.clear()  # keep at most one workload resident
             cache[wkey] = _gen_workload(nr, ns, skew, sel, cfg.seed_r,
-                                        cfg.seed_s, cfg.alias_payloads, dev)
+                                        cfg.seed_s, cfg.alias_payloads, dev,
+                                        cfg.key64)
         relR, relS = cache[wkey]
-        jc = JoinConfig(materialize=mat, checksum=cfg.checksum)
+        jc = JoinConfig(materialize=mat, checksum=cfg.checksum,
+                        key64=cfg.key64)
         try:
             if cfg.warmup and (alg, wkey, mat) not in warmed:
                 run_join(relR, relS, alg, jc, device=dev)  # unrecorded
@@ -185,9 +189,11 @@ def run_experiments_pipelined(cfg: ExperimentConfig,
         if wkey not in cache:
             cache.clear()
             cache[wkey] = _gen_workload(nr, ns, skew, sel, cfg.seed_r,
-                                        cfg.seed_s, cfg.alias_payloads, dev)
+                                        cfg.seed_s, cfg.alias_payloads, dev,
+                                        cfg.key64)
         relR, relS = cache[wkey]
-        jc = JoinConfig(materialize=mat, checksum=cfg.checksum, defer=True)
+        jc = JoinConfig(materialize=mat, checksum=cfg.checksum,
+                        key64=cfg.key64, defer=True)
         try:
             res, t = run_join(relR, relS, alg, jc, device=dev)  # unrecorded
             res, t = finalize_join(relR, relS, res, t, alg, jc, device=dev)

@@ -17,8 +17,9 @@ Deliberate difference: the rank counts R rows below the key, negative keys
 included, where the reference's counts present keys; with unique keys in
 [0, domain) the two agree, and with duplicate or negative R keys the port
 still reads a row of the probed key.  Out-of-domain R keys are indexed
-explicitly (JAX wraps a negative index and drops the rest).  Int32 keys
-only.
+explicitly (JAX wraps a negative index and drops the rest).  Int32 and
+int64 keys: a sparse int64 domain (keys above 2^32, say) goes to the
+sort-merge join, whose exact core sorts an int64 key raw.
 """
 
 from __future__ import annotations
@@ -74,7 +75,7 @@ def probe_cht(present, rank, cp, s_key, domain: int):
 @register("CHT")
 def CHT(relR: Relation, relS: Relation, cfg: JoinConfig):
     """Concise hash table join, or `_sortmerge` on a sparse domain."""
-    radix.require_key_dtype("CHT", cfg, relR, relS)
+    radix.require_key_dtype("CHT", relR, relS)
     pt = PhaseTimer(relR.device)
     t0 = time.perf_counter()
     domain = cht_domain(relR.key)

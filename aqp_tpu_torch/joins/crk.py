@@ -16,8 +16,10 @@ keeps the tree, and joins partition by partition.  Here:
     (phase "join"): buckets are key prefixes, so partition-major order is
     key order and the per-partition joins are one merge;
   * profile_phases joins window by window (phase "join"): every row's
-    window comes from the tree spans, and one sort of the union packed as
-    (window, key, side) joins every window at once with the 1-D core.
+    window comes from the tree spans, and one sort of the union by
+    (window, key, side) joins every window at once with the 1-D core
+    (mergejoin.sorted_union: packed in one int64 for int32 keys, two
+    stable sorts for int64 keys).
     Materialized, window p's live rows fill positions [p * cap_s, ...) of
     the output, cap_s the largest S span rounded up to a power of two,
     and holes (key -3) the rest, as the reference's windows do;
@@ -30,7 +32,9 @@ crack sort and the spans alike.  Keys inside [0, 2^key_bits) get the
 reference's buckets, layout and spans; a key outside (negative, or at or
 above 2^key_bits when S holds keys R's size does not cover) joins in the
 first or the last partition.  The reference leaves such rows outside every
-window, so its windowed form drops their matches.  Int32 keys only.
+window, so its windowed form drops their matches.  Int32 and int64 keys;
+an int64 key is compared whole (sparse keys above 2^32 all fall in the
+last partition).
 """
 
 from __future__ import annotations
@@ -53,10 +57,9 @@ from aqp_tpu_torch.ops import mergejoin
 from aqp_tpu_torch.relation import Relation
 from aqp_tpu_torch.utils.timing import PhaseTimer
 
-_U32 = 0xFFFFFFFF
-INT32_MIN = -(1 << 31)
-# The windowed join packs (window << 33 | (key - INT32_MIN) << 1 | side)
-# into an int64, so a window id must stay below 2^30.
+# The windowed join packs (window << 33 | (key + 2^31) << 1 | side) into an
+# int64 for int32 keys (mergejoin.sorted_union), so a window id must stay
+# below 2^30.
 MAX_WINDOW_DEPTH = 30
 
 
@@ -148,28 +151,24 @@ def _window_ids(bounds: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _window_union(crR: CrackedRelation, crS: CrackedRelation):
-    """Both stores' rows as one sorted packed union (window << 33 |
-    (key - INT32_MIN) << 1 | side, R side 0): window by window, the exact
-    core's packed order.  Returns (packed, payloads in that order)."""
+    """Both stores' rows as one union in (window, key, side) order, R side
+    first: window by window, the exact core's order.  Returns (window,
+    key, is_r, payload) in that order."""
     if crR.depth > MAX_WINDOW_DEPTH:
         raise ValueError(f"the windowed join takes at most "
                          f"{MAX_WINDOW_DEPTH} crack levels, got {crR.depth}")
-
-    def packed(cr, side):
-        win = _window_ids(cr.bounds, cr.num_tuples)
-        return (win << 33) | ((cr.key.long() - INT32_MIN) << 1) | side
-
-    pk, order = torch.sort(torch.cat([packed(crR, 0), packed(crS, 1)]),
-                           stable=True)
+    win = torch.cat([_window_ids(cr.bounds, cr.num_tuples)
+                     for cr in (crR, crS)])
+    key, is_r, order = mergejoin.sorted_union(crR.key, crS.key, major=win)
     pay = torch.cat([crR.payload.long(), crS.payload.long()])[order]
-    return pk, pay
+    return win[order], key, is_r, pay
 
 
 def _windows_join_count(crR: CrackedRelation, crS: CrackedRelation
                         ) -> mergejoin.JoinCounts:
     """The per-partition joins of every window: matches and checksum."""
-    pk, pay = _window_union(crR, crS)
-    match, _, prop_pay = mergejoin._matches(pk, pay)
+    _, key, is_r, pay = _window_union(crR, crS)
+    match, prop_pay = mergejoin._matches(key, is_r, pay)
     return hit_counts(match, prop_pay, pay)
 
 
@@ -184,25 +183,25 @@ def _windows_join_materialize(crR: CrackedRelation, crS: CrackedRelation
                               ) -> mergejoin.JoinMaterialized:
     """The windowed join's output: cap_s rows a partition, its live rows
     (key, R payload, S payload) first and holes (key -3, payloads 0)
-    behind."""
+    behind; the columns keep the stores' dtypes."""
     npart, cap_s = crS.bounds.numel() - 1, _window_cap(crS.bounds)
-    pk, pay = _window_union(crR, crS)
-    match, key, prop_pay = mergejoin._matches(pk, pay)
-    win = pk >> 33
+    win, key, is_r, pay = _window_union(crR, crS)
+    match, prop_pay = mergejoin._matches(key, is_r, pay)
     # a match's rank among its window's matches (the union is
     # window-major, so a window's matches are consecutive)
     seen = torch.cumsum(match, 0)
-    per_win = torch.zeros(npart, dtype=torch.int64, device=pk.device)
+    per_win = torch.zeros(npart, dtype=torch.int64, device=key.device)
     per_win.scatter_add_(0, win, match.long())
     before = torch.cumsum(per_win, 0) - per_win
     dest = torch.where(match, win * cap_s + seen - 1 - before[win],
                        npart * cap_s)
     cols = []
-    for src, fill in (((key & _U32) + INT32_MIN, -3), (prop_pay, 0),
-                      (pay, 0)):
-        col = torch.full((npart * cap_s + 1,), fill, dtype=torch.int32,
-                         device=pk.device)
-        col[dest] = src.to(torch.int32)
+    for src, fill, dtype in ((key, -3, crR.key.dtype),
+                             (prop_pay, 0, crR.payload.dtype),
+                             (pay, 0, crS.payload.dtype)):
+        col = torch.full((npart * cap_s + 1,), fill, dtype=dtype,
+                         device=key.device)
+        col[dest] = src.to(dtype)
         cols.append(col[:-1])
     return mergejoin.JoinMaterialized(*hit_counts(match, prop_pay, pay),
                                       *cols)
@@ -251,7 +250,7 @@ def _query_depth(n_r: int, cfg: JoinConfig, adjust: int) -> int:
 
 def _crk(name: str, relR: Relation, relS: Relation, cfg: JoinConfig,
          adjust: int):
-    radix.require_key_dtype(name, cfg, relR, relS)
+    radix.require_key_dtype(name, relR, relS)
     pt = PhaseTimer(relR.device)
     depth = _query_depth(relR.num_tuples, cfg, adjust)
     # one key domain for both sides: S is a foreign key into R's keys

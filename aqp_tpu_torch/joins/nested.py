@@ -7,8 +7,9 @@ aqp_tpu/joins/nested.py).
        with equal keys counts, duplicate R keys included.  The block,
        read as int8, times an int8 matrix of ones and R's payload nibbles
        (one torch._int_mm a tile, int32 sums) gives per S row the
-       multiplicity and the sum of its partners' payloads mod 2^32, with
-       no wider block; matches and checksum come from those, and the
+       multiplicity and the sum of its partners' payloads mod 2^32 (all
+       sixteen nibbles, mod 2^64, to materialize int64 payloads), with no
+       wider block; matches and checksum come from those, and the
        materialize form hands them to mergejoin.compact_matches.
   INL  the ordered index is R sorted by key (phase "build", the btree's
        analog, nested_loop_join.cpp:160-217); the probe is the exact merge
@@ -19,7 +20,7 @@ Deliberate differences: the reference pads NL's tiles to 2,048 rows with R
 key -1 and S key -2 and counts those pads as partners of real keys -1 and
 -2; the port pads nothing.  An empty R answers 0 in INL's profile_phases
 form, where the reference gathers from an empty index and raises.  Both
-names take int32 keys only.
+names take int32 and int64 keys, compared whole.
 """
 
 from __future__ import annotations
@@ -51,28 +52,32 @@ NL_SPLIT = 8
 _U32 = 0xFFFFFFFF
 
 
-def _nl_weights(r_key, r_payload):
+def _nl_weights(r_key, r_payload, nibbles: int):
     """R padded to a multiple of 8 * NL_SPLIT rows with copies of its
     first key, and the int8 weights of its NL_SPLIT chunks side by side,
-    (rows / NL_SPLIT, 16 * NL_SPLIT): chunk q's 16 columns hold, for its
-    rows, a one (pad rows too, so they count; the caller takes them out)
-    and the payload's eight nibbles as unsigned, low first (pads 0), then
-    seven zero columns."""
+    (rows / NL_SPLIT, 2 * nibbles * NL_SPLIT): chunk q's 2 * nibbles
+    columns hold, for its rows, a one (pad rows too, so they count; the
+    caller takes them out) and the payload's low `nibbles` nibbles (8 or
+    16) as unsigned, low first (pads 0), then zero columns."""
+    width = 2 * nibbles
     pad = -r_key.numel() % (8 * NL_SPLIT)
     rk = torch.cat([r_key, r_key[:1].expand(pad)])
-    nib = (r_payload.long() & _U32)[:, None] >> torch.arange(
-        0, 32, 4, device=r_key.device)
-    w = torch.zeros(rk.numel(), 16, dtype=torch.int8, device=r_key.device)
+    nib = r_payload.long()[:, None] >> torch.arange(
+        0, 4 * nibbles, 4, device=r_key.device)
+    w = torch.zeros(rk.numel(), width, dtype=torch.int8,
+                    device=r_key.device)
     w[:, 0] = 1
-    w[:r_key.numel(), 1:9] = (nib & 15).to(torch.int8)
-    w = w.view(NL_SPLIT, -1, 16).transpose(0, 1).reshape(-1, 16 * NL_SPLIT)
+    w[:r_key.numel(), 1:nibbles + 1] = (nib & 15).to(torch.int8)
+    w = w.view(NL_SPLIT, -1, width).transpose(0, 1).reshape(
+        -1, width * NL_SPLIT)
     return rk, w, pad
 
 
-def _nl_probe_all_pairs(r_key, r_payload, s_key):
+def _nl_probe_all_pairs(r_key, r_payload, s_key, nibbles: int = 8):
     """Per S row, by all-pairs blocks: the number of R rows with its key
-    and the sum of their payloads mod 2^32 (int64).  With unique R keys
-    the sum is the partner's payload."""
+    and the sum of their payloads (int64), mod 2^32 from 8 nibbles, mod
+    2^64 from 16.  With unique R keys the sum is the partner's payload,
+    its low 32 bits or all 64."""
     dev = s_key.device
     ns = s_key.numel()
     mult = torch.zeros(ns, dtype=torch.int64, device=dev)
@@ -82,21 +87,25 @@ def _nl_probe_all_pairs(r_key, r_payload, s_key):
     if r_key.numel() > NL_MAX_R:
         raise ValueError(f"NL takes at most {NL_MAX_R} R rows, got "
                          f"{r_key.numel()}")
-    rk, w, pad = _nl_weights(r_key, r_payload)
+    rk, w, pad = _nl_weights(r_key, r_payload, nibbles)
+    width = 2 * nibbles
     # whole tiles of at least 32 rows (the int8 product wants more than
     # 16), the last padded with R's first key; the pad rows are dropped
     step = max(32, NL_BLOCK_BYTES // rk.numel() // 32 * 32)
     sk = torch.cat([s_key, rk[:1].expand(-ns % 32)])
-    shift = torch.arange(0, 32, 4, device=dev)
+    shift = torch.arange(0, 4 * nibbles, 4, device=dev)
     for lo in range(0, ns, step):
         eq = sk[lo:lo + step, None] == rk[None, :]
         rows = eq.shape[0]
         prod = torch._int_mm(eq.view(torch.int8).view(rows * NL_SPLIT, -1),
-                             w).view(rows, NL_SPLIT, NL_SPLIT, 16)
+                             w).view(rows, NL_SPLIT, NL_SPLIT, width)
         # row (j, q) met every chunk's weights: keep chunk q's own
         sums = prod.diagonal(dim1=1, dim2=2).sum(2)[:ns - lo]
         mult[lo:lo + step] = sums[:, 0]
-        rsum[lo:lo + step] = (sums[:, 1:9] << shift).sum(1) & _U32
+        # int64 sums wrap mod 2^64, the 16-nibble form's modulus
+        rsum[lo:lo + step] = (sums[:, 1:nibbles + 1].long() << shift).sum(1)
+    if nibbles == 8:
+        rsum &= _U32
     # the pad copies of R's first key partnered every S row of that key
     mult -= (s_key == r_key[0]).long() * pad
     return mult, rsum
@@ -115,15 +124,18 @@ def _nl_count(r_key, r_payload, s_key, s_payload) -> mergejoin.JoinCounts:
 def NL(relR: Relation, relS: Relation, cfg: JoinConfig):
     """Blocked all-pairs nested-loop join: phase "join", and
     "materialize" to compact the matched S rows."""
-    radix.require_key_dtype("NL", cfg, relR, relS)
+    radix.require_key_dtype("NL", relR, relS)
     pt = PhaseTimer(relR.device)
     t0 = time.perf_counter()
     if cfg.materialize:
+        wide = relR.payload.dtype == torch.int64
         mult, rsum = pt.time_fn("join", _nl_probe_all_pairs, relR.key,
-                                relR.payload, relS.key)
+                                relR.payload, relS.key, 16 if wide else 8)
+        # the partner's payload: all its bits (16 nibbles), or its low 32
+        # read back as the int32 it was
         out = pt.time_fn("materialize", mergejoin.compact_matches,
-                         mult > 0, relS.key, rsum, relS.payload,
-                         capacity=result_capacity(relS, cfg))
+                         mult > 0, relS.key, rsum.to(relR.payload.dtype),
+                         relS.payload, capacity=result_capacity(relS, cfg))
     else:
         out = pt.time_fn("join", _nl_count, relR.key, relR.payload,
                          relS.key, relS.payload)
@@ -154,7 +166,7 @@ def INL(relR: Relation, relS: Relation, cfg: JoinConfig):
     "build", kept apart as the persistent artifact); the probe is the
     exact merge core against it, one pass over the batch of S keys, or
     with profile_phases an explicit binary search of each."""
-    radix.require_key_dtype("INL", cfg, relR, relS)
+    radix.require_key_dtype("INL", relR, relS)
     pt = PhaseTimer(relR.device)
     t0 = time.perf_counter()
     rk, rp = pt.time_fn("build", sortmerge._sort_pair, relR.key,

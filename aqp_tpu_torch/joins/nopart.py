@@ -36,9 +36,14 @@ default one bucket-major sort of R and S and the duplicate-exact run-count
 scan (every equal R key in a chain is counted); profile_phases keeps the
 staged build / chain-walk probe; materialize goes to the exact core.
 
-Every name takes int32 keys only and raises on others, as RHO does
-(64-bit keys are not ported yet).  Deliberate difference: NPBC packs keys
-in int64 where the reference's int32 `key << 1` wraps for |key| >= 2^30.
+Every name takes int32 and int64 keys, as RHO does.  An int64 key reaches
+no kernel: the PHT family and NPO_st / NPO_no take the staged
+open-addressing engine, NPBC_st its own forms, whose bucket-major order
+sorts an int64 key raw.  A real key equal to the EMPTY marker (the dtype's
+largest value) is held beside the table, not in it, so it joins as any key
+does.  Deliberate differences: NPBC packs an int32 key in int64 where the
+reference's int32 `key << 1` wraps for |key| >= 2^30; the EMPTY-valued key
+is exact in both dtypes.
 """
 
 from __future__ import annotations
@@ -78,48 +83,58 @@ def _empty(dtype: torch.dtype) -> int:
 def build_table(r_key, r_payload, table_bits: int):
     """Open-addressing build by scatter-min rounds.
 
-    Returns (table_key[T + slack], table_payload[T + slack],
+    Returns (table_key[T + slack + 1], table_payload[T + slack + 1],
     max_displacement) with T = 2^table_bits.  The slack region absorbs
-    linear probes past the table's end (no wraparound).  The round bound
-    ends the loop for any key set; rows left over then are dropped
-    (impossible at load <= 0.5 in practice)."""
+    linear probes past the table's end (no wraparound).  The last slot is
+    no probe's: its payload is that of R's row keyed EMPTY, which has no
+    slot of its own, and its key is EMPTY when R holds such a row, else
+    EMPTY - 1 (read by `probe_table`).  The round bound ends the loop for
+    any key set; rows left over then are dropped (impossible at load <=
+    0.5 in practice)."""
     T = 1 << table_bits
     slack = _MAX_BUILD_ROUNDS
     dev = r_key.device
+    empty = _empty(r_key.dtype)
     # one slot past the table takes the scatters of settled rows
-    tkey = torch.full((T + slack + 1,), _empty(r_key.dtype),
-                      dtype=r_key.dtype, device=dev)
+    tkey = torch.full((T + slack + 1,), empty, dtype=r_key.dtype,
+                      device=dev)
     slot0 = fib_hash32(r_key, table_bits).long()
     slot = slot0
-    active = torch.ones_like(r_key, dtype=torch.bool)
+    keyed_empty = r_key == empty
+    active = ~keyed_empty
     rounds = 0
     while rounds < _MAX_BUILD_ROUNDS and bool(active.any()):
         target = torch.where(active, slot, T + slack)
         tkey.scatter_reduce_(0, target, r_key, reduce="amin")
-        settled = tkey[slot] == r_key
+        settled = keyed_empty | (tkey[slot] == r_key)
         # a smaller key owns the slot: move on (a settled row evicted by a
         # smaller key becomes active again)
         slot = torch.where(settled, slot, slot + 1)
         active = ~settled
         rounds += 1
-    # unique keys -> unique final slots: the payload scatter has no conflict
+    # unique keys -> unique final slots: the payload scatter has no
+    # conflict; the EMPTY-keyed row goes to the last slot
+    slot = torch.where(keyed_empty, T + slack, slot)
     tpay = torch.zeros((T + slack + 1,), dtype=r_payload.dtype, device=dev)
     tpay[slot] = r_payload
+    tkey[T + slack] = torch.where(keyed_empty.any(), empty, empty - 1)
     max_disp = ((slot - slot0).max() if slot.numel()
                 else torch.zeros((), dtype=torch.int64, device=dev))
-    return tkey[:T + slack], tpay[:T + slack], max_disp
+    return tkey, tpay, max_disp
 
 
 def probe_table(tkey, tpay, s_key, table_bits: int, window: int):
     """Windowed probe: gather `window` consecutive slots per key, then loop
     over the keys still unresolved (neither hit nor an empty slot seen).
+    An S key equal to EMPTY reads the build's last slot instead.
     Returns (found, r_payload)."""
     slot0 = fib_hash32(s_key, table_bits).long()
-    last = tkey.numel() - 1
+    last = tkey.numel() - 2
     empty = _empty(tkey.dtype)
-    found = torch.zeros_like(s_key, dtype=torch.bool)
-    open_ = torch.zeros_like(found)   # saw EMPTY: a definite miss
-    rpay = torch.zeros(s_key.shape, dtype=tpay.dtype, device=s_key.device)
+    keyed_empty = s_key == empty
+    found = keyed_empty & (tkey[-1] == empty)
+    open_ = keyed_empty.clone()   # saw EMPTY (or is it): no more probes
+    rpay = torch.where(found, tpay[-1], 0).to(tpay.dtype)
 
     def step(w):
         nonlocal found, open_, rpay
@@ -133,7 +148,7 @@ def probe_table(tkey, tpay, s_key, table_bits: int, window: int):
     for w in range(window):
         step(w)
     w = window
-    while w < tkey.numel() and bool((~(found | open_)).any()):
+    while w <= last and bool((~(found | open_)).any()):
         step(w)
         w += 1
     return found, rpay
@@ -179,10 +194,11 @@ def _pipeline(relR, relS, cfg, pt, variant):
 
 def _nopart(relR: Relation, relS: Relation, cfg: JoinConfig, window: int,
             variant: str = "PHT"):
-    radix.require_key_dtype(variant, cfg, relR, relS)
+    radix.require_key_dtype(variant, relR, relS)
     pt = PhaseTimer(relR.device)
     t0 = time.perf_counter()
-    if cfg.use_pallas and not cfg.profile_phases:
+    if (cfg.use_pallas and not cfg.profile_phases
+            and not radix.is_key64(relR, relS)):
         res = _pipeline(relR, relS, cfg, pt, variant)
         if res is None:
             res = radix.exact_core(relR, relS, cfg, pt)
@@ -283,18 +299,14 @@ def npbc_probe_count(rk_s, rp_s, bounds, s_key, s_payload, nb_bits: int,
 
 def _npbc_fused(rk, rp, sk, sp, nb_bits: int, checksum: bool):
     """Fused bucket-chaining count join: the union of R and S ordered
-    bucket-major (bucket, then key << 1 | tag), and the duplicate-exact
+    bucket-major (bucket, then key, R before S), and the duplicate-exact
     run-count scan over it: every equal-key R row of a chain counts."""
-    key = torch.cat([rk, sk])
-    b = fib_hash32(key, nb_bits).long()
-    skey = torch.cat([rk.long() << 1, (sk.long() << 1) | 1])
-    # skey lies in [-2^32, 2^32): bucket-major as one int64 sort key
-    order = torch.sort(b * (1 << 33) + (skey + (1 << 32)), stable=True
-                       ).indices
-    pk = skey[order]
+    b = fib_hash32(torch.cat([rk, sk]), nb_bits).long()
+    key, is_r, order = mergejoin.sorted_union(rk, sk, major=b)
     if checksum:
-        return mergejoin.count_general_scan(pk, torch.cat([rp, sp])[order])
-    out = mergejoin.count_general_scan(pk, torch.zeros_like(pk))
+        return mergejoin.count_general_runs(key, is_r,
+                                            torch.cat([rp, sp])[order])
+    out = mergejoin.count_general_runs(key, is_r, torch.zeros_like(key))
     return mergejoin.JoinCounts(out.matches, torch.zeros_like(out.checksum))
 
 
@@ -303,7 +315,7 @@ def NPBC_st(relR, relS, cfg):
     """Bucket-chaining join: grouped-span chains and chain-walk probes,
     2^ceil(log2 |R|) buckets as the reference sizes them (at most 2^24 in
     the fused form).  Counts every duplicate in a chain."""
-    radix.require_key_dtype("NPBC_st", cfg, relR, relS)
+    radix.require_key_dtype("NPBC_st", relR, relS)
     pt = PhaseTimer(relR.device)
     t0 = time.perf_counter()
     nb_bits = max(4, math.ceil(math.log2(max(2, relR.num_tuples))))

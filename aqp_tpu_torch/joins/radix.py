@@ -30,7 +30,7 @@ family (joins/nopart.py) walks the same ladder with its own pipeline:
 count_tiers, walk_ladder and exact_core serve both.
 
 The radix frame (no kernel, plain PyTorch on every device) serves RHO with
-use_pallas=False, and RHO_seq, RHT and RSM always:
+use_pallas=False or int64 keys, and RHO_seq, RHT and RSM always:
 
   partition   plan_radix sizes the partitions (cfg.radix_bits / passes or
               |R| / cfg.partition_rows); each pass is a stable sort on the
@@ -40,16 +40,23 @@ use_pallas=False, and RHO_seq, RHT and RSM always:
               (k div 2^bits), a bijection on [0, 2^30) that makes the
               bucket the major sort criterion, so one sort of the union is
               the partition-local order;
-  staged      (profile_phases) the partition passes, then the join: RHO
+  staged      (profile_phases, int64 keys) the partition passes, then the
+              join: RHO
               (`_rho_xla`, RHO_seq with two passes) and RSM the exact core,
               RHT a build (R sorted by key, payload prefix sums) and a
               range-scan probe (exact for duplicate R keys).
 
 RHT's fused form is the duplicate-exact run-count core; RHO's, RHO_seq's
-and RSM's the unique-R propagate core.  Every name takes int32 keys only.
-Deliberate difference: a key >= 2^30 (where rotation is no bijection and
-the reference's fused form can join unequal keys) sends a call to the
-staged form, which needs no rotation.
+and RSM's the unique-R propagate core.
+
+Every name takes int32 and int64 keys (R and S of one dtype).  An int64
+key reaches no kernel: RHO skips the ladder (after the dense path, whose
+proof is dtype-generic) for the radix frame, and the frame takes the
+staged form, whose exact core sorts int64 keys raw, so every int64 key is
+exact (the reference's `k << 1` wraps for |k| >= 2^62).  Deliberate
+difference: an int32 key >= 2^30 (where rotation is no bijection and the
+reference's fused form can join unequal keys) sends a call to the staged
+form, which needs no rotation.
 """
 
 from __future__ import annotations
@@ -137,13 +144,23 @@ def holds_input_pads(*keys) -> bool:
     return any(cached_by_tensor(_PAD_CACHE, k, _has_pad) for k in keys)
 
 
-def require_key_dtype(name: str, cfg: JoinConfig, *rels: Relation) -> None:
-    """Raise unless every relation's key has cfg.key_dtype (int32; key64
-    is not ported yet)."""
-    for rel in rels:
-        if rel.key.dtype != cfg.key_dtype:
-            raise TypeError(f"{name} takes {cfg.key_dtype} keys, got "
-                            f"{rel.key.dtype}")
+KEY_DTYPES = (torch.int32, torch.int64)
+
+
+def require_key_dtype(name: str, *rels: Relation) -> None:
+    """Raise unless the relations' keys are int32 or int64, all of one
+    dtype.  The dtype decides the route, whatever JoinConfig.key64 says,
+    as in the reference."""
+    dtypes = {rel.key.dtype for rel in rels}
+    if len(dtypes) > 1 or not dtypes <= set(KEY_DTYPES):
+        raise TypeError(f"{name} takes int32 or int64 keys of one dtype, "
+                        f"got {sorted(map(str, dtypes))}")
+
+
+def is_key64(*rels: Relation) -> bool:
+    """True for 64-bit keys, which no kernel takes: they go to the plain
+    PyTorch engines."""
+    return any(rel.key.dtype == torch.int64 for rel in rels)
 
 
 def walk_ladder(relR: Relation, relS: Relation, cfg: JoinConfig,
@@ -193,13 +210,13 @@ def exact_core(relR: Relation, relS: Relation, cfg: JoinConfig,
 @register("RHO")
 def RHO(relR: Relation, relS: Relation, cfg: JoinConfig):
     """Parallel radix join: count and materialize, through the ladder; the
-    radix frame when use_pallas is off."""
-    require_key_dtype("RHO", cfg, relR, relS)
+    radix frame when use_pallas is off or the keys are int64."""
+    require_key_dtype("RHO", relR, relS)
     if dense_pk_applicable(relR, relS, cfg):
         out = dense_pk_join(relR, relS, cfg)
         if out is not None:
             return out
-    if not cfg.use_pallas:
+    if not cfg.use_pallas or is_key64(relR, relS):
         if not cfg.profile_phases:
             return _radix_fused(relR, relS, cfg, general=False)
         return _rho_xla(relR, relS, cfg)
@@ -284,10 +301,12 @@ def _below_rot_limit(key) -> bool:
 
 
 def _supports_rot(relR: Relation, relS: Relation) -> bool:
-    """True when every key is below 2^30, where rotation is a bijection
-    (cached per tensor)."""
-    return all(cached_by_tensor(_ROT_CACHE, k, _below_rot_limit)
-               for k in (relR.key, relS.key))
+    """True for int32 keys all below 2^30, where rotation is a bijection
+    (cached per tensor); int64 keys go to the staged form, as in the
+    reference."""
+    return not is_key64(relR, relS) and all(
+        cached_by_tensor(_ROT_CACHE, k, _below_rot_limit)
+        for k in (relR.key, relS.key))
 
 
 def _radix_fused_count(rk, rp, sk, sp, bits: int, checksum: bool,
@@ -358,7 +377,7 @@ def _rho_xla(relR, relS, cfg):
 def RHO_seq(relR, relS, cfg):
     """RHO with two partition passes (the reference's FORCE_2_PHASES);
     the fused path is one program in rotated order."""
-    require_key_dtype("RHO_seq", cfg, relR, relS)
+    require_key_dtype("RHO_seq", relR, relS)
     if not cfg.profile_phases:
         return _radix_fused(relR, relS, cfg, general=False)
     return _rho_xla(relR, relS, cfg.replace(passes=2))
@@ -408,7 +427,7 @@ def RHT(relR: Relation, relS: Relation, cfg: JoinConfig):
     """Radix + per-partition histogram join (radix_join.cpp:1645-1648):
     the fused duplicate-exact core on rotated keys; profile_phases stages
     partition, build and probe."""
-    require_key_dtype("RHT", cfg, relR, relS)
+    require_key_dtype("RHT", relR, relS)
     if not cfg.profile_phases:
         return _radix_fused(relR, relS, cfg, general=True)
     pt = PhaseTimer(relR.device)
@@ -437,7 +456,7 @@ def RSM(relR, relS, cfg):
     one sort in rotated order (bucket bits major: partition-local sorted
     runs) and the propagation merge; profile_phases stages the partition
     passes and the merge."""
-    require_key_dtype("RSM", cfg, relR, relS)
+    require_key_dtype("RSM", relR, relS)
     if not cfg.profile_phases:
         return _radix_fused(relR, relS, cfg, general=False, label="merge")
     return _radix_staged(relR, relS, cfg, general=False, label="merge")

@@ -15,18 +15,20 @@ aqp_tpu/joins/sortmerge.py).
         (sortmergejoin_multiway.cpp:90-537).  A value-skewed domain
         overflows a bucket; the overflow is reported and the call falls
         back to the exact core.  Elsewhere (the CPU, use_pallas=False,
-        profile_phases) the explicit form: the tagged union cut into
+        profile_phases, int64 keys) the explicit form: the union cut into
         PARTFANOUT sorted runs, a binary merge tree of merge-path pair
         merges, and the propagation merge-join with the pad excluded.
 
 The reference's explicit MWAY merges small inputs with bitonic networks and
 large ones with merge path (a TPU compiler limit); the port merges with
 merge path at every width.  Both are sorts, so with unique R keys the
-answers are the same.  The port packs keys in int64 (the reference's int32
-`key << 1` wraps for |key| >= 2^30), and MWAY sends a caller's key equal to
-an input pad of the pipeline (2^30 - 2 or 2^30 - 1), which the range route
-would drop, to the exact core, as RHO does.  Every name takes int32 keys
-only.
+answers are the same.  The port's explicit form sorts raw keys with their
+row ids (the reference's `key << 1` wraps for |key| >= 2^30 in int32 and
+2^62 in int64), and MWAY sends a caller's key equal to an input pad of the
+pipeline (2^30 - 2 or 2^30 - 1), which the range route would drop, to the
+exact core, as RHO does.  Both names take int32 and int64 keys; an int64
+key never reaches the range route (its kernels are int32 only): MWAY takes
+the explicit form, PSM the exact core, which sorts it raw.
 """
 
 from __future__ import annotations
@@ -51,10 +53,6 @@ from aqp_tpu_torch.utils.timing import PhaseTimer
 # independent sorted runs of the sorting phase.
 PARTFANOUT = 128
 
-# Pads the union to whole runs: sorts after every packed key and is tagged
-# S (odd), so it never matches; the join excludes it all the same.
-_PAD_PACKED = torch.iinfo(torch.int64).max
-
 _U32 = 0xFFFFFFFF
 
 
@@ -78,39 +76,42 @@ def _merge_pair_rows(ak, ap, bk, bp):
 
 def _mway_join(rk, rp, sk, sp):
     """MWAY's explicit form: run sort, binary merge tree, propagation
-    join.  Returns (JoinCounts, (key, s payload, match, R payload)) over
-    the merged union."""
-    skey = torch.cat([rk.long() << 1, (sk.long() << 1) | 1])
-    pay = torch.cat([rp, sp])
-    n = skey.numel()
+    join.  The raw keys of concat(R, S) move with their row ids; every
+    sort and merge is stable, so R's rows stay before S's rows of an equal
+    key, and the pad rows that fill the union to whole runs (the dtype's
+    largest key) after every real row.  Returns (JoinCounts, (key,
+    s payload, match, R payload)) over the merged union."""
+    key = torch.cat([rk, sk])
+    n = key.numel()
     run = max(8, -(-n // PARTFANOUT))
     run = 1 << (run - 1).bit_length()
     pad = PARTFANOUT * run - n
-    if pad:
-        skey = torch.cat([skey, skey.new_full((pad,), _PAD_PACKED)])
-        pay = torch.cat([pay, pay.new_zeros(pad)])
+    key = torch.cat([key, key.new_full((pad,), torch.iinfo(key.dtype).max)])
     # sorting phase: PARTFANOUT independent runs
-    kv, order = torch.sort(skey.view(PARTFANOUT, run), dim=1, stable=True)
-    pv = torch.gather(pay.view(PARTFANOUT, run), 1, order)
+    kv, order = torch.sort(key.view(PARTFANOUT, run), dim=1, stable=True)
+    iv = order + torch.arange(0, PARTFANOUT * run, run,
+                              device=key.device)[:, None]
     # multiway merge: log2(PARTFANOUT) rounds of pair merges
     while kv.shape[0] > 1:
-        ak, ap = kv[0::2].contiguous(), pv[0::2].contiguous()
-        bk, bp = kv[1::2].contiguous(), pv[1::2].contiguous()
-        kv, pv = _merge_pair_rows(ak, ap, bk, bp)
-    pk, spay = kv.reshape(-1), pv.reshape(-1)
+        ak, ai = kv[0::2].contiguous(), iv[0::2].contiguous()
+        bk, bi = kv[1::2].contiguous(), iv[1::2].contiguous()
+        kv, iv = _merge_pair_rows(ak, ai, bk, bi)
+    key, idx = kv.reshape(-1), iv.reshape(-1)
+    pay = torch.cat([rp.long(), sp.long()])
+    pay = torch.cat([pay, pay.new_zeros(pad)])[idx]
     # the merge-join phase (joincommon.h:82-100)
-    match, key, prop_pay = mergejoin._matches(pk, spay)
-    match &= pk != _PAD_PACKED
-    ck = torch.where(match, ((prop_pay.long() & _U32)
-                             + (spay.long() & _U32)) & _U32, 0)
+    match, prop_pay = mergejoin._matches(key, idx < rk.numel(), pay)
+    match &= idx < n
+    ck = torch.where(match, ((prop_pay & _U32) + (pay & _U32)) & _U32, 0)
     counts = mergejoin.JoinCounts(match.sum(), ck.sum() & _U32)
-    return counts, (key, spay, match, prop_pay)
+    return counts, (key, pay, match, prop_pay)
 
 
 def _mway_materialize(rk, rp, sk, sp, capacity: int):
     _, (key, spay, match, prop_pay) = _mway_join(rk, rp, sk, sp)
     return mergejoin.compact_matches(match, key, prop_pay, spay,
-                                     capacity=capacity)
+                                     capacity=capacity,
+                                     dtypes=(rk.dtype, rp.dtype, sp.dtype))
 
 
 def mway_scale(rk, sk, prm: Rho3Params = Rho3Params()) -> float:
@@ -140,7 +141,8 @@ def _mway_range_materialize(rk, rp, sk, sp):
 def _mway_range_available(relR: Relation, relS: Relation,
                           cfg: JoinConfig) -> bool:
     return (cfg.use_pallas and not cfg.profile_phases
-            and relR.device.type == "cuda" and relR.num_tuples > 0
+            and relR.device.type == "cuda"
+            and not radix.is_key64(relR, relS) and relR.num_tuples > 0
             and relS.num_tuples > 0
             and not radix.holds_input_pads(relR.key, relS.key))
 
@@ -148,9 +150,9 @@ def _mway_range_available(relR: Relation, relS: Relation,
 @register("MWAY")
 def MWAY(relR: Relation, relS: Relation, cfg: JoinConfig):
     """m-way sort-merge join (sortmergejoin_multiway.cpp:90-537): the
-    range-routed pipeline on a CUDA device, with the exact core on
-    overflow; else the explicit run sort + merge tree."""
-    radix.require_key_dtype("MWAY", cfg, relR, relS)
+    range-routed pipeline on a CUDA device for int32 keys, with the exact
+    core on overflow; else the explicit run sort + merge tree."""
+    radix.require_key_dtype("MWAY", relR, relS)
     pt = PhaseTimer(relR.device)
     t0 = time.perf_counter()
     args = (relR.key, relR.payload, relS.key, relS.payload)
@@ -224,5 +226,5 @@ def _sortmerge(relR: Relation, relS: Relation, cfg: JoinConfig):
 def PSM(relR: Relation, relS: Relation, cfg: JoinConfig):
     """Parallel sort-merge join (parallel_sortmerge_join.cpp:76-118):
     `_sortmerge`."""
-    radix.require_key_dtype("PSM", cfg, relR, relS)
+    radix.require_key_dtype("PSM", relR, relS)
     return _sortmerge(relR, relS, cfg)

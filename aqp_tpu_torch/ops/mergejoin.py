@@ -1,7 +1,6 @@
 """Exact sort-based equi-join core (counterpart of aqp_tpu/ops/mergejoin.py).
 
-    1. sort concat(R, S) by key<<1 | tag, R rows tagged 0 so they sort
-       before S rows of an equal key;
+    1. sort concat(R, S) by key, R rows before S rows of an equal key;
     2. propagate the last R (key, payload) forward;
     3. an S row matches iff the propagated key equals its own.
 
@@ -10,10 +9,15 @@ every (R, S) pair, for any R multiplicity.  This is the oracle and the last
 rung of RHO's ladder, on every device, for counts and (through
 `merge_join_materialize`) for materialized output.
 
-Packing and sums run in int64: a key may be any int32 (the reference packs
-in int32 and needs |key| < 2^30), and the checksum is summed exactly and
-masked to 32 bits.  Results are 0-dim int64 tensors; the checksum lies in
-[0, 2^32).
+A key sorts raw, in its own dtype, in one stable sort of concat(R, S): R's
+rows come first, so they stay before S's rows of an equal key, and every
+int32 and int64 key is exact (the reference sorts key<<1 | tag, which
+needs |key| < 2^30 in int32 and wraps for |key| >= 2^62 in int64).  Only
+under a major order (NPBC_st's buckets, the cracking windows) do int32
+keys pack (major, key, tag) into one int64, which saves a second sort.
+Sums run in int64: the checksum is summed exactly and masked to 32 bits.
+Results are 0-dim int64 tensors; the checksum lies in [0, 2^32).
+Materialized columns keep the inputs' dtypes.
 """
 
 from __future__ import annotations
@@ -33,13 +37,27 @@ class JoinCounts(NamedTuple):
 class JoinMaterialized(NamedTuple):
     matches: torch.Tensor   # 0-dim int64
     checksum: torch.Tensor  # 0-dim int64 in [0, 2^32)
-    key: torch.Tensor       # int32 (capacity,); holes keyed -3
+    key: torch.Tensor       # the R key's dtype (capacity,); holes keyed -3
     r_payload: torch.Tensor
     s_payload: torch.Tensor
 
 
-def _packed(r_key: torch.Tensor, s_key: torch.Tensor) -> torch.Tensor:
-    return torch.cat([r_key.long() << 1, (s_key.long() << 1) | 1])
+def sorted_union(r_key: torch.Tensor, s_key: torch.Tensor, major=None):
+    """concat(R, S) in join order: by `major` (int64 per row of the union,
+    in [0, 2^30); None for none), then key, R before S of an equal key,
+    stably.  Returns (key, is_r, order into concat(R, S)); the key keeps
+    the keys' dtype (int64 under `major`)."""
+    if major is None or torch.int64 in (r_key.dtype, s_key.dtype):
+        key, order = torch.sort(torch.cat([r_key, s_key]), stable=True)
+        if major is not None:
+            perm = torch.sort(major[order], stable=True).indices
+            key, order = key[perm], order[perm]
+        return key, order < r_key.numel(), order
+    # int32 keys under `major`: (major, key + 2^31, tag) packed in one
+    # int64, so one sort orders all three
+    pk = torch.cat([r_key.long() << 1, (s_key.long() << 1) | 1])
+    pk, order = torch.sort((major << 33) | (pk + (1 << 32)), stable=True)
+    return ((pk >> 1) & _U32) - (1 << 31), (pk & 1) == 0, order
 
 
 def last_index(valid: torch.Tensor) -> torch.Tensor:
@@ -67,45 +85,46 @@ def _propagate(is_r: torch.Tensor, key: torch.Tensor, pay: torch.Tensor):
     return key[at], pay[at], last >= 0
 
 
-def _matches(pk: torch.Tensor, pay: torch.Tensor):
-    """On a sorted packed union: per position, the S rows that match, the
-    key, and the propagated R payload."""
-    is_r = (pk & 1) == 0
-    key = pk >> 1
+def _matches(key: torch.Tensor, is_r: torch.Tensor, pay: torch.Tensor):
+    """On a union in join order: per position, whether it is an S row that
+    matches, and the propagated R payload."""
     prop_key, prop_pay, seen = _propagate(is_r, key, pay)
-    return ~is_r & seen & (prop_key == key), key, prop_pay
+    return ~is_r & seen & (prop_key == key), prop_pay
 
 
 def _u32(x: torch.Tensor) -> torch.Tensor:
     return x.long() & _U32
 
 
-def _sorted_union(r_key, r_payload, s_key, s_payload):
-    pk, order = torch.sort(_packed(r_key, s_key), stable=True)
-    pay = torch.cat([r_payload.long(), s_payload.long()])[order]
-    return pk, pay
+def _sorted_rows(r_key, r_payload, s_key, s_payload):
+    """(key, is_r, payload) of the union in join order."""
+    key, is_r, order = sorted_union(r_key, s_key)
+    return key, is_r, torch.cat([r_payload.long(), s_payload.long()])[order]
 
 
 def merge_join_count(r_key, r_payload, s_key, s_payload) -> JoinCounts:
     """Exact match count + mod-2^32 checksum, unique R keys."""
-    pk, pay = _sorted_union(r_key, r_payload, s_key, s_payload)
-    match, _, prop_pay = _matches(pk, pay)
+    key, is_r, pay = _sorted_rows(r_key, r_payload, s_key, s_payload)
+    match, prop_pay = _matches(key, is_r, pay)
     ck = torch.where(match, (_u32(prop_pay) + _u32(pay)) & _U32, 0)
     return JoinCounts(match.sum(), ck.sum() & _U32)
 
 
-def compact_matches(hit, key, r_payload, s_payload, capacity: int
-                    ) -> JoinMaterialized:
+def compact_matches(hit, key, r_payload, s_payload, capacity: int,
+                    dtypes=None) -> JoinMaterialized:
     """Compact the rows where `hit` into a fixed-capacity materialized
     result: live rows first, in their order (a stable sort by !hit), cut or
     zero-padded to `capacity`; past them key -3 and payloads 0 (-3 is never
-    a real key, so the output can feed a further join).  Dense consumers
-    use it on region-chunked output."""
+    a real key, so the output can feed a further join).  The columns keep
+    their dtypes, or take `dtypes` (key, R payload, S payload) where the
+    caller computed them wider.  Dense consumers use it on region-chunked
+    output."""
     matches = hit.sum()
     ck = torch.where(hit, (_u32(r_payload) + _u32(s_payload)) & _U32, 0)
     order = torch.argsort((~hit).to(torch.int8), stable=True)
-    cols = [c[order].to(torch.int32)[:capacity]
-            for c in (key, r_payload, s_payload)]
+    cols = (key, r_payload, s_payload)
+    dtypes = dtypes or [c.dtype for c in cols]
+    cols = [c[order].to(dt)[:capacity] for c, dt in zip(cols, dtypes)]
     pad = capacity - cols[0].numel()
     if pad > 0:
         cols = [torch.cat([c, c.new_zeros(pad)]) for c in cols]
@@ -120,29 +139,28 @@ def merge_join_materialize(r_key, r_payload, s_key, s_payload,
                            capacity: int) -> JoinMaterialized:
     """Materialized join output (key, r_payload, s_payload) in the
     compact_matches layout.  Unique R keys."""
-    pk, pay = _sorted_union(r_key, r_payload, s_key, s_payload)
-    match, key, prop_pay = _matches(pk, pay)
-    return compact_matches(match, key, prop_pay, pay, capacity)
+    key, is_r, pay = _sorted_rows(r_key, r_payload, s_key, s_payload)
+    match, prop_pay = _matches(key, is_r, pay)
+    return compact_matches(match, key, prop_pay, pay, capacity,
+                           (r_key.dtype, r_payload.dtype, s_payload.dtype))
 
 
 def merge_join_count_keys(r_key, s_key) -> JoinCounts:
     """Matches-only count (no payloads move); checksum 0.  Unique R keys."""
-    pk = torch.sort(_packed(r_key, s_key)).values
-    match, _, _ = _matches(pk, pk)
+    key, is_r, _ = sorted_union(r_key, s_key)
+    match, _ = _matches(key, is_r, key)
     return JoinCounts(match.sum(), torch.zeros((), dtype=torch.int64,
-                                               device=pk.device))
+                                               device=key.device))
 
 
-def _run_base(pk: torch.Tensor):
-    """Per position: is_r, the inclusive R count, and the R count before the
-    position's key run."""
-    key = pk >> 1
-    is_r = (pk & 1) == 0
+def _run_base(key: torch.Tensor, is_r: torch.Tensor):
+    """Per position: the R indicator, the inclusive R count, and whether a
+    key run starts there."""
     r_ind = is_r.long()
     r_pref = torch.cumsum(r_ind, 0)
     prev = torch.cat([key.new_full((1,), -1), key[:-1]])
     run_start = key != prev
-    return is_r, r_ind, r_pref, run_start
+    return r_ind, r_pref, run_start
 
 
 def _at_run_start(run_start: torch.Tensor, base: torch.Tensor):
@@ -153,10 +171,11 @@ def _at_run_start(run_start: torch.Tensor, base: torch.Tensor):
                        torch.zeros_like(base))
 
 
-def count_general_scan(pk: torch.Tensor, pay: torch.Tensor) -> JoinCounts:
-    """Run-count scan of the duplicate-exact core on a sorted packed union
-    (pk = key<<1 | tag ascending, pay aligned payloads)."""
-    is_r, r_ind, r_pref, run_start = _run_base(pk)
+def count_general_runs(key: torch.Tensor, is_r: torch.Tensor,
+                       pay: torch.Tensor) -> JoinCounts:
+    """Run-count scan of the duplicate-exact core on a union in join order
+    (equal keys contiguous, R rows first), `pay` its aligned payloads."""
+    r_ind, r_pref, run_start = _run_base(key, is_r)
     rpay = torch.where(is_r, _u32(pay), 0)
     rpay_pref = torch.cumsum(rpay, 0)
     run_cnt0 = _at_run_start(run_start,
@@ -173,16 +192,16 @@ def merge_join_count_general(r_key, r_payload, s_key, s_payload
                              ) -> JoinCounts:
     """Duplicate-tolerant count: matches = sum over S of #R rows with its
     key; checksum = sum over pairs of r_pay + s_pay, mod 2^32."""
-    pk, pay = _sorted_union(r_key, r_payload, s_key, s_payload)
-    return count_general_scan(pk, pay)
+    return count_general_runs(*_sorted_rows(r_key, r_payload, s_key,
+                                            s_payload))
 
 
 def merge_join_count_general_keys(r_key, s_key) -> JoinCounts:
     """Matches-only duplicate-tolerant count; checksum 0."""
-    pk = torch.sort(_packed(r_key, s_key)).values
-    is_r, r_ind, r_pref, run_start = _run_base(pk)
+    key, is_r, _ = sorted_union(r_key, s_key)
+    r_ind, r_pref, run_start = _run_base(key, is_r)
     run_cnt0 = _at_run_start(run_start,
                              torch.where(run_start, r_pref - r_ind, 0))
     mult = torch.where(~is_r, r_pref - run_cnt0, 0)
     return JoinCounts(mult.sum(), torch.zeros((), dtype=torch.int64,
-                                              device=pk.device))
+                                              device=key.device))

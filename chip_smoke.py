@@ -185,7 +185,33 @@ Phases, each printed on one line with its elapsed seconds:
      checksum) equal to the exact core on the whole S on the card, the
      streamed time (best of 3 after a warm-up, host clock to the last
      sync) below copy alone plus probe alone; one {"streamjoin"...} line;
- 16. after every main path, so that its work does not change the state
+ 16. 64-bit keys (int64 relations, which reach no kernel): every join
+     name but NL on 13,107,200 x 52,428,800 keys above 2^40 with int64
+     payloads beyond 32 bits, 16 S keys 2^40 + 1 + 2^32 (R's 2^40 + 1 in
+     their low 32 bits), keys-only and checksummed, and materialized for
+     RHO, PHT, MWAY and INL; NL at 2^18 x 2^20; dense int64 keys through
+     CHT and the cracking names; each answer held to its int32 twin (keys
+     less 2^40, the trap rows keyed |R| + 1) through RHO's kernel
+     pipeline, materialized rows as multisets of live rows with int64
+     columns and every R and S payload whole; every kernel's launches
+     over those calls 0; RHO, PHT, MWAY and INL keys-only and materialized
+     (1 warm-up, 5 calls, CUDA events) and NL checksummed and materialized
+     (1 warm-up, 1 call) timed beside the same call on the int32 twin,
+     with the int64 call's phases; join --key64 -x cache-exceed in-process (matches |S|, no
+     launch); the four join-sweep drivers (join_overview and its key64
+     rows, skew, selectivity, scaling) at full size through their config
+     functions, 3 pipelined calls a configuration: no error row, every
+     row's matches equal to the exact core's (merge_join_count_keys) on
+     the workload the harness draws; then the sweeps once more, 1
+     pipelined call a configuration, keys-only and checksummed, with
+     every kernel launch (K1, K2, K3, K3TWO, the compactor, both
+     scatters, RSTATS) held exactly to its plain version on the inputs
+     the main path gives it, the 2^29 x 52.4M point included (the
+     routing and region kernels' plain versions run in pieces of whole
+     blocks, windows or regions, each against its slice); every launch
+     of that pass a held one, every kernel the sweeps launched held;
+     one {"key64"...} line;
+ 17. after every main path, so that its work does not change the state
      the timed phases run in: the segment scatters (both) on 3,000 segments in no order
      with gaps, dead segments among them and a cut at out_rows, with no
      live segment and with none at all, every output row compared (the
@@ -196,8 +222,8 @@ Phases, each printed on one line with its elapsed seconds:
      RSTATS at phase 11's shapes (at most its output's memset and the
      kernel) and each scatter at phase 8's (the kernel alone); each
      kernel seen at least once a call.
-Each of phases 4, 7, 8, 9, 10, 11, 12, 13, 14 and 15 sets the launch counts to 0
-just before its main path and reads them just after; a kernel's launches in the
+Each of phases 4, 7, 8, 9, 10, 11, 12, 13, 14, 15 and 16 sets the launch counts
+to 0 just before its main path and reads them just after; a kernel's launches in the
 kernels line are summed over those main paths.  The scale-up column needs 16 GiB
 of device memory (18 GiB with its bitvector).  Then one JSON line with the
 kernels' numbers, and last the result line {"ok": true, "device": {...}}.  Any failure exits
@@ -209,8 +235,10 @@ import faulthandler
 
 faulthandler.dump_traceback_later(600, exit=True)
 
+import dataclasses  # noqa: E402
 import functools  # noqa: E402
 import io  # noqa: E402
+import itertools  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import subprocess  # noqa: E402
@@ -231,8 +259,10 @@ from aqp_tpu_torch.experiments import (  # noqa: E402
     membench, partition_bench)
 from aqp_tpu_torch.joins import (  # noqa: E402
     cht, crk, skewtier, sortmerge)
-from aqp_tpu_torch.joins.api import run_join  # noqa: E402
-from aqp_tpu_torch.harness.runner import CSV_HEADER  # noqa: E402
+from aqp_tpu_torch.joins.api import (  # noqa: E402
+    JOIN_ALGORITHMS, run_join)
+from aqp_tpu_torch.harness.runner import (  # noqa: E402
+    CSV_HEADER, _gen_workload, run_experiments_pipelined)
 from aqp_tpu_torch.ops import (  # noqa: E402
     aggregate, mergejoin, scan, streamjoin)
 from aqp_tpu_torch.ops.hashing import fib_hash32  # noqa: E402
@@ -1330,13 +1360,18 @@ def main() -> int:
         # 15. the entry points: the CLI, the harness, the profiler and the
         # streaming join, on the dbgen store before it is removed
         entry_phase(card, store, tpch_out["tpch"]["dbgen"]["oracle"])
-    # 16. after every main path: the scatters' full-size cases and the
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # 16. 64-bit keys through every join name, join --key64 and the four
+    # join-sweep drivers at full size
+    print(json.dumps(key64_phase(card)), flush=True)
+    # 17. after every main path: the scatters' full-size cases and the
     # device operations of one RSTATS or scatter call
     device_op_checks(rows)
     say(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         " GiB")
     # each kernel's launches over every phase's main path (K1 and K2 run in
-    # phases 4, 7, 8, 10, 11, 12 and 14)
+    # phases 4, 7, 8, 10, 11, 12, 14, 15 and 16)
     total = {k: sum(p[k] for p in MAIN_PATH.values()) for k in SOURCE}
     print(json.dumps({"main_path_launches": MAIN_PATH, "total": total}),
           flush=True)
@@ -2339,8 +2374,8 @@ def npbc_steps(relR, relS) -> dict:
         "NPBC_st bucket-major sort key": sort_key,
         "NPBC_st stable sort (|R| + |S| int64 keys)": lambda: torch.sort(
             comp, stable=True),
-        "NPBC_st count_general_scan": lambda: mergejoin.count_general_scan(
-            pk, pay),
+        "NPBC_st count_general_scan": lambda: mergejoin.count_general_runs(
+            pk >> 1, is_r, pay),
         "exact core merge_join_count": lambda: mergejoin.merge_join_count(
             relR.key, relR.payload, relS.key, relS.payload),
         "mergejoin.last_index over the sorted union": lambda:
@@ -3859,6 +3894,515 @@ def entry_phase(card, store, oracle) -> None:
     stream = stream_phase(card)
     main_path_launches("15 streamjoin")
     print(json.dumps({"streamjoin": stream}), flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: 64-bit keys through every join name, and the join-sweep drivers
+
+KEY64_HI = 1 << 40
+KEY64_TRAP = 16                      # S rows keyed 2^40 + 1 + 2^32
+KEY64_FORMS = (("keys-only", JoinConfig(checksum=False)),
+               ("checksummed", JoinConfig()))
+KEY64_MATERIALIZE = ("RHO", "PHT", "MWAY", "INL")
+KEY64_DENSE = ("CHT", "CRKJ", "CrkJoin", "CRKJF", "CRKJS")
+KEY64_DENSE_MATERIALIZE = ("CHT", "CRKJ")
+KEY64_WATCHDOG_S = 600               # the phase's own watchdog
+
+
+def wide_payloads(n, gen) -> tuple:
+    """(int64 payloads in [-2^40, 2^40), their low 32 bits as int32)."""
+    p = torch.randint(-(1 << 40), 1 << 40, (n,), generator=gen, device=DEV,
+                      dtype=torch.int64)
+    return p, (((p + (1 << 31)) & U32) - (1 << 31)).int()
+
+
+def key64_relations(nr, ns, seed, sparse=True) -> tuple:
+    """((R64, S64), (R32, S32)): R the PK keys 1..nr, S FK keys, with int64
+    payloads beyond 32 bits.  sparse: the int64 keys are those + 2^40, and
+    the first KEY64_TRAP S keys 2^40 + 1 + 2^32 (R's key 2^40 + 1 in its
+    low 32 bits, no R key); the int32 twin keys those rows nr + 1, which
+    no R key is either.  Else the int64 keys are the int32 keys."""
+    r, s = seeded(nr, ns, seed)
+    gen = torch.Generator(device=DEV).manual_seed(seed + 5)
+    rp64, rp32 = wide_payloads(nr, gen)
+    sp64, sp32 = wide_payloads(ns, gen)
+    off = KEY64_HI if sparse else 0
+    rk64, sk64, sk32 = r.key.long() + off, s.key.long() + off, s.key
+    if sparse:
+        sk64[:KEY64_TRAP] = KEY64_HI + 1 + (1 << 32)
+        sk32 = sk32.clone()
+        sk32[:KEY64_TRAP] = nr + 1
+    return ((Relation(rk64, rp64), Relation(sk64, sp64)),
+            (Relation(r.key, rp32), Relation(sk32, sp32)))
+
+
+def key64_truth(narrow, traps: int) -> dict:
+    """The int32 twin through RHO's kernel pipeline (the dense path off):
+    keys-only and checksummed counts and the materialized live rows, every
+    S row but the `traps` matching.  These are the answers the int64 calls
+    are held to."""
+    cfg = JoinConfig(dense_path=False)
+    out = {}
+    for label, c in KEY64_FORMS:
+        res = run_join(*narrow, "RHO", cfg.replace(checksum=c.checksum))[0]
+        out[label] = (int(res.matches), int(res.checksum))
+    res = run_join(*narrow, "RHO", cfg.replace(materialize=True))[0]
+    out["rows"] = live_rows(res.key, res.r_payload, res.s_payload)
+    out["materialize"] = (int(res.matches), int(res.checksum))
+    expect = narrow[1].num_tuples - traps
+    require(out["checksummed"][0] == out["keys-only"][0]
+            == out["materialize"][0] == expect, "the int32 twin through "
+            f"RHO: {out} matches, want {expect}")
+    return out
+
+
+def key64_calls(sparse, dense, nl) -> dict:
+    """Phase 16's int64 calls: label -> a run_join call."""
+    calls = {}
+    for name in sorted(set(JOIN_ALGORITHMS) - {"NL"}):
+        for label, cfg in KEY64_FORMS:
+            calls[f"{name} {label}"] = functools.partial(
+                run_join, *sparse, name, cfg.replace(key64=True))
+    for name in KEY64_MATERIALIZE:
+        calls[f"{name} materialize"] = functools.partial(
+            run_join, *sparse, name, JoinConfig(key64=True,
+                                                materialize=True))
+    for name in KEY64_DENSE:
+        for label, cfg in KEY64_FORMS:
+            calls[f"{name} dense {label}"] = functools.partial(
+                run_join, *dense, name, cfg.replace(key64=True))
+    for name in KEY64_DENSE_MATERIALIZE:
+        calls[f"{name} dense materialize"] = functools.partial(
+            run_join, *dense, name, JoinConfig(key64=True, materialize=True))
+    calls["NL checksummed"] = functools.partial(
+        run_join, *nl, "NL", JoinConfig(key64=True))
+    calls["NL materialize"] = functools.partial(
+        run_join, *nl, "NL", JoinConfig(key64=True, materialize=True))
+    return calls
+
+
+def check_key64_rows(label, res, wide, want) -> None:
+    """A materialized int64 result: int64 columns; (key - 2^40, payloads'
+    low 32 bits) equal to the twin's live rows as a multiset; every live
+    R payload R's own (all 64 bits), the S payloads those of S's matching
+    rows."""
+    r64, s64 = wide
+    require(res.key.dtype == res.r_payload.dtype == res.s_payload.dtype
+            == torch.int64, f"{label}: columns {res.key.dtype}, "
+            f"{res.r_payload.dtype}, {res.s_payload.dtype}")
+    off = KEY64_HI if int(r64.key.min()) > KEY64_HI else 0
+    live = res.key != -3
+    k = torch.where(live, res.key - off, -3)
+    require(all(torch.equal(a, b) for a, b in zip(
+        live_rows(k, res.r_payload, res.s_payload), want["rows"])),
+        f"{label}: live rows != the int32 twin's")
+    by_key = torch.empty_like(r64.payload)
+    by_key[r64.key - off - 1] = r64.payload
+    require(torch.equal(res.r_payload[live], by_key[k[live] - 1]),
+            f"{label}: an R payload is not R's own 64 bits")
+    hit = torch.isin(s64.key, r64.key)
+    require(torch.equal(torch.sort(res.s_payload[live]).values,
+                        torch.sort(s64.payload[hit]).values),
+            f"{label}: the S payloads are not S's matching rows'")
+
+
+def key64_times(card, sparse, narrow, nl, nl32) -> dict:
+    """ms per call (CUDA events, REPS calls after a warm-up; NL one) of
+    RHO, PHT, MWAY and INL on the int64 relations, keys-only and
+    materialized, and of NL at 2^18 x 2^20, checksummed and materialized,
+    each beside the same call on the int32 twin; and the int64 call's
+    phases (seconds, PhaseTimer)."""
+    out = {}
+    cases = [(name, form, sparse, narrow, REPS)
+             for name in KEY64_MATERIALIZE
+             for form in (("keys-only", JoinConfig(checksum=False)),
+                          ("materialize", JoinConfig(materialize=True)))]
+    cases += [("NL", form, nl, nl32, 1)
+              for form in (("checksummed", JoinConfig()),
+                           ("materialize", JoinConfig(materialize=True)))]
+    for name, (label, cfg), wide, twin, reps in cases:
+        call64 = functools.partial(run_join, *wide, name,
+                                   cfg.replace(key64=True))
+        ms64 = cuda_ms(call64, reps)
+        ms32 = cuda_ms(functools.partial(run_join, *twin, name, cfg),
+                       reps)
+        phases = call64()[1].phases
+        out[f"{name} {label}"] = {"int64": ms64, "int32": ms32,
+                                  "int64_phases": phases}
+        say(f"phase 16 {name} {label}: int64 {ms64:.3f} ms/call, "
+            f"int32 twin {ms32:.3f} ms/call ({card}); int64 phases "
+            + ", ".join(f"{k} {v * 1e3:.3f} ms"
+                        for k, v in phases.items()))
+    return out
+
+
+def sweep_drivers() -> dict:
+    """join_overview (and its key64 rows), skew, selectivity and scaling at
+    full size, read through their config functions as the JAX package's
+    drivers define them: name -> (configurations, backend label)."""
+    from aqp_tpu_torch.experiments import (join_overview, scaling,
+                                           selectivity, skew)
+
+    return {
+        "join_overview": (join_overview.configs(device=DEV), None),
+        "join_overview --key64": (join_overview.key64_configs(device=DEV),
+                                  "cuda_k64"),
+        "skew": ([skew.config(device=DEV)], None),
+        "selectivity": ([selectivity.config(device=DEV)], None),
+        "scaling": ([scaling.config(device=DEV)], None),
+    }
+
+
+def sweep_point(size_r, size_s, skew, sel) -> tuple:
+    """A workload as the harness's rows name it."""
+    return (int(size_r), int(size_s), 0.0 if skew is None else float(skew),
+            100.0 if sel is None else float(sel))
+
+
+def sweep_exact(cfgs) -> dict:
+    """Per workload of `cfgs` (sweep_point), the exact core's matches
+    (merge_join_count_keys) on the relations the harness draws for it."""
+    out = {}
+    for cfg in cfgs:
+        for (nr, ns), z, sel in itertools.product(cfg.sizes, cfg.skews,
+                                                  cfg.selectivities):
+            point = sweep_point(nr, ns, z, sel)
+            if point in out:
+                continue
+            r, s = _gen_workload(nr, ns, z, sel, cfg.seed_r, cfg.seed_s,
+                                 cfg.alias_payloads, DEV, cfg.key64)
+            out[point] = int(mergejoin.merge_join_count_keys(
+                r.key, s.key).matches)
+            del r, s
+            torch.cuda.empty_cache()
+    return out
+
+
+def sweep_checks(name, rows, exact) -> dict:
+    """A driver's rows: no error row, and every row's matches equal to the
+    exact core's on the same workload (`exact`, sweep_exact).  Returns per
+    (alg, size, skew, selectivity) its throughput (M rows/s)."""
+    errors = [r for r in rows if r["measurement"] == "error"]
+    require(not errors, f"{name}: error rows {errors}")
+    out = {}
+    for r in rows:
+        point = f"{r['alg']} {r['size_r']}x{r['size_s']} z={r['skew']} " \
+                f"sel={r['selectivity']} m={r['materialize']}"
+        if r["measurement"] == "matches":
+            want = exact[sweep_point(r["size_r"], r["size_s"], r["skew"],
+                                     r["selectivity"])]
+            require(r["value"] == want, f"{name} {point}: {r['value']} "
+                    f"matches, the exact core {want}")
+        if r["measurement"] == "throughput_mrows" and r["rep"] == 0:
+            out[point] = r["value"]
+    return out
+
+
+def _pair_plain(ks, ps, soff, doff, sz, nseg, out_rows,
+                fill_key=compact.KEY_PAD_INT):
+    return compact.scatter_segments_plain([ks, ps], soff, doff, sz, out_rows,
+                                          fill_key)
+
+
+def _one_plain(ks, soff, doff, sz, nseg, out_rows,
+               fill_key=compact.KEY_PAD_INT):
+    return compact.scatter_segments_plain([ks], soff, doff, sz, out_rows,
+                                          fill_key)[0]
+
+
+PLAIN_PIECE = 1 << 26   # elements a piece of a plain version takes at most
+
+
+def k1_err(got, packed, pay, nb, prm, scale) -> int:
+    """K1's outputs against k1_plain run over runs of whole blocks (K1
+    routes each block of prm.block inputs into that block's own slots),
+    each piece held to its slice of the kernel's slots and counts; where
+    a piece's slots overflowed, its counts alone (an overflowing slot keeps
+    what K1's scatter placed first).  The overflows must sum to K1's."""
+    per = max(1, PLAIN_PIECE // prm.block)
+    err, ovf = 0, 0
+    for b0 in range(0, nb, per):
+        b1 = min(nb, b0 + per)
+        cut = slice(b0 * prm.block, b1 * prm.block)
+        want = rho3.k1_plain(packed[cut], None if pay is None else pay[cut],
+                             b1 - b0, prm, scale)
+        part = [None if g is None else g[b0:b1] for g in got[:3]]
+        ovf += int(want[3])
+        err = max(err, max_abs_err(part[2:], want[2:3]) if int(want[3])
+                  else max_abs_err(part, want[:3]))
+    require(ovf == int(got[3]), f"K1 overflow {int(got[3])}, its plain "
+            f"version {ovf}")
+    return err
+
+
+def k2_err(got, k1, p1, cnt1, prm, scale) -> int:
+    """K2's outputs against k2_plain run over runs of whole windows
+    (prm.group blocks, which K2 merges into the window's own fine slots),
+    each piece held to its slice; the overflows must sum to K2's."""
+    nbg = k1.shape[0] // prm.group
+    per = max(1, PLAIN_PIECE // (prm.group * prm.block))
+    err, ovf = 0, 0
+    for w0 in range(0, nbg, per):
+        w1 = min(nbg, w0 + per)
+        cut = slice(w0 * prm.group, w1 * prm.group)
+        want = rho3.k2_plain(k1[cut], None if p1 is None else p1[cut],
+                             cnt1[cut], prm, scale)
+        err = max(err, max_abs_err(
+            [None if g is None else g[:, w0:w1] for g in got[:3]], want[:3]))
+        ovf += int(want[3])
+    require(ovf == int(got[3]), f"K2 overflow {int(got[3])}, its plain "
+            f"version {ovf}")
+    return err
+
+
+def region_err(plain):
+    """A comparison for K3, K3M, K3TWO or K3TWO_MAT: `plain` run over runs
+    of the fine slots' first axis, which no region spans; the pieces'
+    matches and checksums (mod 2^32) summed against the kernel's, each
+    piece's columns (which run region-major) against their slice of the
+    kernel's."""
+    def err_of(got, *args):
+        f1 = args[0].shape[0]
+        live = sum(int(a.sum()) for a in args
+                   if isinstance(a, torch.Tensor) and a.dim() == 3)
+        per = max(1, f1 * PLAIN_PIECE // max(1, live))
+        err, m, c, at = 0, 0, 0, 0
+        for i in range(0, f1, per):
+            want = plain(*(a[i:i + per] if isinstance(a, torch.Tensor)
+                           else a for a in args))
+            m, c = m + int(want[0]), c + int(want[1])
+            if len(want) > 2:
+                n = want[2].numel()
+                err = max(err, max_abs_err([g[at:at + n] for g in got[2:]],
+                                           want[2:]))
+                at += n
+        if len(got) > 2:
+            require(at == got[2].numel(), f"the pieces cover {at} of "
+                    f"{got[2].numel()} output rows")
+        return max(err, abs(int(got[0]) - m), abs(int(got[1]) - (c & U32)))
+    return err_of
+
+
+def _pair_plain(ks, ps, soff, doff, sz, nseg, out_rows,
+                fill_key=compact.KEY_PAD_INT):
+    return compact.scatter_segments_plain([ks, ps], soff, doff, sz, out_rows,
+                                          fill_key)
+
+
+def _one_plain(ks, soff, doff, sz, nseg, out_rows,
+               fill_key=compact.KEY_PAD_INT):
+    return compact.scatter_segments_plain([ks], soff, doff, sz, out_rows,
+                                          fill_key)[0]
+
+
+def whole_err(name, plain):
+    """A comparison against one call of the plain version, in phase 3's
+    terms: the compactor's blocks and counts; a scatter's rows but the
+    last (its callers drop it); else every output."""
+    def err_of(got, *args, **kw):
+        want = plain(*args, **kw)
+        if name == "compact_windows":
+            return max_abs_err(flat_outputs(name, got),
+                               flat_outputs(name, want))
+        if name.startswith("scatter"):
+            return max_abs_err([g[:-1] for g in as_list(got)],
+                               [w[:-1] for w in as_list(want)])
+        return max_abs_err(as_list(got), as_list(want))
+    return err_of
+
+
+# kernel -> (the module whose name for the wrapper the joins call, that
+# name, the comparison with the plain version: in pieces for the routing
+# and region kernels, whose whole plain output would not fit beside the
+# main path's tensors at the sweeps' largest point)
+HELD_KERNELS = {
+    "K1": (rho3, "k1", k1_err),
+    "K2": (rho3, "k2", k2_err),
+    "K3": (rho3, "k3", region_err(rho3.k3_plain)),
+    "K3M": (rho3, "k3m", region_err(rho3.k3m_plain)),
+    "K3TWO": (nphj, "k3two", region_err(nphj.k3two_plain)),
+    "K3TWO_MAT": (nphj, "k3two_mat", region_err(nphj.k3two_mat_plain)),
+    "compact_windows": (lanecompact, "_compact_windows", whole_err(
+        "compact_windows", lanecompact.compact_windows_plain)),
+    "scatter_segments": (lanecompact, "scatter_segments",
+                         whole_err("scatter_segments", _pair_plain)),
+    "scatter_segments_one": (lanecompact, "scatter_segments_one", whole_err(
+        "scatter_segments_one", _one_plain)),
+    "RSTATS": (skewtier, "r_cand_stats_kernel",
+               whole_err("RSTATS", rstats.r_cand_stats_plain)),
+}
+
+
+def _held_call(name, kernel, err_of, held, *args, **kw):
+    got = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    err = err_of(got, *args, **kw)
+    torch.cuda.synchronize()
+    shapes = [list(a.shape) for a in args if isinstance(a, torch.Tensor)]
+    require(err == 0, f"{name} differs from its plain version by {err} on "
+            f"a sweep's inputs {shapes}")
+    rec = held.setdefault(name, {"launches": 0, "max_abs_err": 0,
+                                 "inputs": []})
+    rec["launches"] += 1
+    rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    if shapes not in rec["inputs"]:
+        rec["inputs"].append(shapes)
+    return got
+
+
+@contextlib.contextmanager
+def held_to_plain(held):
+    """Every wrapper of HELD_KERNELS, where the joins call it, replaced by
+    one that launches the kernel, runs the plain version on the same
+    inputs and requires equal outputs (its comparison in HELD_KERNELS);
+    `held` gathers each kernel's held launches and input shapes."""
+    saved = {}
+    for name, (mod, attr, err_of) in HELD_KERNELS.items():
+        saved[(mod, attr)] = kernel = getattr(mod, attr)
+        setattr(mod, attr, functools.partial(_held_call, name, kernel,
+                                             err_of, held))
+    try:
+        yield
+    finally:
+        for (mod, attr), kernel in saved.items():
+            setattr(mod, attr, kernel)
+
+
+def sweeps_held(drivers, exact, launched) -> dict:
+    """The sweeps once more with every kernel launch held to its plain
+    version on the inputs the main path gives it (held_to_plain): each
+    configuration at 1 pipelined call after its deferred call, keys-only
+    as the drivers run it and checksummed (payloads through K1, K2, K3,
+    K3TWO, RSTATS and the pair scatter).  Every launch of this pass must be
+    a held one (the launch counts' rise equals the held launches), and
+    every kernel the sweeps launched must be held.  Returns per kernel its
+    held launches, max_abs_err and input shapes."""
+    held = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    with held_to_plain(held):
+        for name, (cfgs, backend) in drivers.items():
+            for checksum in (False, True):
+                rows = []
+                for cfg in cfgs:
+                    rows += run_experiments_pipelined(dataclasses.replace(
+                        cfg, reps=1, checksum=checksum), backend=backend)
+                sweep_checks(f"{name} (held, checksum={checksum})", rows,
+                             exact[name])
+                torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    rose = {k: v for k, v in read_launches().items() if v}
+    require(rose == {k: v["launches"] for k, v in held.items()},
+            f"a launch escaped the plain check: launched {rose}, held "
+            f"{ {k: v['launches'] for k, v in held.items()} }")
+    missing = sorted(set(launched) - set(held))
+    require(not missing, f"the sweeps launched {missing}, never held")
+    say(f"phase 16 drivers held to the plain versions in {secs:.2f} s: "
+        + "; ".join(f"{k} {v['launches']} launches on "
+                    f"{len(v['inputs'])} input shapes, max_abs_err "
+                    f"{v['max_abs_err']}" for k, v in held.items()))
+    return held
+
+
+def sweeps(card) -> tuple:
+    """The four drivers' sweeps at full size (3 pipelined calls a
+    configuration) as one main path; then every row's matches against the
+    exact core, and the sweeps again with every kernel launch held to its
+    plain version (sweeps_held).  Returns (each driver's seconds, rows and
+    points, with the held launches; the main path's launches)."""
+    drivers = sweep_drivers()
+    out, runs = {}, {}
+    torch.cuda.synchronize()
+    reset_launches()
+    for name, (cfgs, backend) in drivers.items():
+        t0 = time.perf_counter()
+        rows = []
+        for cfg in cfgs:
+            rows += run_experiments_pipelined(cfg, backend=backend)
+        runs[name] = (rows, time.perf_counter() - t0)
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in main_path_launches("16 sweeps").items()
+                if v}
+    say(f"phase 16 drivers' launches: {launched}")
+    exact = {name: sweep_exact(cfgs) for name, (cfgs, _) in drivers.items()}
+    for name, (rows, secs) in runs.items():
+        points = sweep_checks(name, rows, exact[name])
+        out[name] = {"s": secs, "rows": len(rows), "mrows_per_s": points}
+        say(f"phase 16 driver {name}: {len(rows)} rows, no error, matches "
+            f"equal to the exact core's, in {secs:.2f} s ({card}): "
+            f"{json.dumps(points)}")
+    out["held"] = sweeps_held(drivers, exact, launched)
+    return out, launched
+
+
+def key64_phase(card) -> dict:
+    """Phase 16: every join name but NL on 13.1M x 52.4M int64 relations
+    (keys above 2^40, 16 S keys that alias R's 2^40 + 1 under a 32-bit
+    cut), keys-only and checksummed, materialized for RHO, PHT, MWAY and
+    INL; NL at 2^18 x 2^20; dense int64 keys through CHT and the cracking
+    names: each held to its int32 twin through RHO's kernels, no kernel
+    launched by any int64 call; the int64 times beside the int32 twin's;
+    join --key64 -x cache-exceed; the four join-sweep drivers at full
+    size.  Returns the key64 line."""
+    faulthandler.dump_traceback_later(KEY64_WATCHDOG_S, exit=True)
+    sparse, narrow = key64_relations(NR, NS, seed=1701)
+    dense, dense32 = key64_relations(NR, NS, seed=1702, sparse=False)
+    nl, nl32 = key64_relations(NL_NR, NL_NS, seed=1703)
+    want = {"sparse": key64_truth(narrow, KEY64_TRAP),
+            "dense": key64_truth(dense32, 0),
+            "nl": key64_truth(nl32, KEY64_TRAP)}
+    calls = key64_calls(sparse, dense, nl)
+    torch.cuda.synchronize()
+    reset_launches()
+    results = {label: fn()[0] for label, fn in calls.items()}
+    torch.cuda.synchronize()
+    k64_launches = main_path_launches("16 key64")
+    require(not any(k64_launches.values()), "an int64 join launched a "
+            f"kernel: {k64_launches}")
+    for label, res in results.items():
+        which = ("nl" if label.startswith("NL") else
+                 "dense" if " dense " in label else "sparse")
+        form = label.rsplit(" ", 1)[1]
+        got = (int(res.matches), int(res.checksum))
+        w = want[which]["materialize" if form == "materialize" else
+                        "checksummed"]
+        if form == "keys-only":
+            require(got[0] == w[0], f"{label}: {got[0]} matches, the int32 "
+                    f"twin {w[0]}")
+        else:
+            require(got == w, f"{label}: {got}, the int32 twin {w}")
+        if form == "materialize":
+            check_key64_rows(label, res,
+                             {"nl": nl, "dense": dense}.get(which, sparse),
+                             want[which])
+    del results
+    say(f"phase 16: {len(calls)} int64 calls (every name but NL at {NR} x "
+        f"{NS}, keys above 2^40 with {KEY64_TRAP} alias traps; NL at "
+        f"{NL_NR} x {NL_NS}; dense int64 keys through CHT and the cracking "
+        "names) equal their int32 twins through RHO's kernels; materialized "
+        "columns int64, R and S payloads whole; no kernel launched")
+    ms = key64_times(card, sparse, narrow, nl, nl32)
+    del sparse, narrow, dense, dense32, nl, nl32, calls
+    torch.cuda.empty_cache()
+    argv = ["join", "--key64", "-x", CLI_X, "--reps", CLI_REPS, "--quiet"]
+    reset_launches()
+    stdout, secs = cli(argv)
+    cli_launches = main_path_launches("16 CLI join --key64")
+    got, j = cli_tuples(stdout), cli_json(stdout)
+    require(got == j["matches"] == NS, f"CLI join --key64: {got} result "
+            f"tuples, |S| {NS}")
+    require(not any(cli_launches.values()), "CLI join --key64 launched "
+            f"{cli_launches}")
+    cli_out = {"argv": " ".join(map(str, argv)), "wall_s": secs,
+               "matches": got, "best_total_s": j["phases"]["total"],
+               "mrows_per_s": j["mrows_per_s"]}
+    say(f"CLI join --key64 -x {CLI_X}: {got} tuples (= |S|), best "
+        f"{j['phases']['total'] * 1e3:.3f} ms, {secs:.2f} s ({card})")
+    drivers, launched = sweeps(card)
+    return {"key64": {"card": card, "ms": ms, "cli": cli_out,
+                      "sweeps": drivers, "sweep_launches": launched}}
 
 if __name__ == "__main__":
     sys.exit(main())

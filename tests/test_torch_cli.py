@@ -198,9 +198,39 @@ def test_profile_adds_the_trace(port_cli, tmp_path):
     assert list((tmp_path / "m").glob("*/*.trace.json"))
 
 
-def test_key64_exits_naming_a5(port_cli):
-    with pytest.raises(SystemExit, match="ROADMAP A5"):
-        port_cli(["join", "--key64", "-r", "16", "-s", "16"])
+@pytest.mark.parametrize("flags", [["-a", "RHO"], ["-a", "PHT"],
+                                   ["-a", "MWAY", "-m"], ["-a", "INL"],
+                                   ["-a", "RHO", "-z", "1.5"]],
+                         ids=["RHO", "PHT", "MWAY-m", "INL", "RHO-zipf"])
+def test_key64_join_draws_int64_and_serves_them(port_cli, monkeypatch,
+                                                flags):
+    """join --key64 draws R and S as int64 and runs under
+    JoinConfig(key64=True); FK gives matches == |S|, Zipf the exact
+    core's count on the same int64 relations."""
+    from aqp_tpu_torch.joins import api
+
+    seen = []
+
+    def spy(relR, relS, alg, cfg, device):
+        seen.append((relR.key.dtype, relS.key.dtype, relR.payload.dtype,
+                     cfg.key64))
+        return real(relR, relS, alg, cfg, device=device)
+
+    real = api.run_join
+    monkeypatch.setattr(api, "run_join", spy)
+    out = port_cli(["join", "--key64", "-r", str(NR), "-s", str(NS),
+                    "--reps", "1", "--quiet", *flags])
+    assert seen == [(torch.int64,) * 3 + (True,)]
+    want = NS
+    if "-z" in flags:
+        r = create_relation_pk(NR, seed=11111, dtype=torch.int64,
+                               device="cpu")
+        s = create_relation_zipf(NS, NR, 1.5, seed=22222, dtype=torch.int64,
+                                 device="cpu")
+        want = int(mergejoin.merge_join_count(r.key, r.payload, s.key,
+                                              s.payload).matches)
+    assert _tuples(out) == _json(out)["matches"] == want
+    assert _json(out)["alg"] == flags[1]
 
 
 @pytest.mark.parametrize("argv", [

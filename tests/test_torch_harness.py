@@ -1,7 +1,7 @@
 """The port's experiment harness and logger against the JAX package's, on
 the CPU: ExperimentConfig's fields, defaults and order, the measurement
 rows of both runners, the error rows, the CSV writer's bytes, key64's
-refusal and the log line format."""
+int64 workloads and rows, and the log line format."""
 
 import dataclasses
 import logging
@@ -86,13 +86,43 @@ def test_rows_to_csv_writes_the_references_bytes(tmp_path):
     assert len(text.splitlines()) == 1 + 2 * len(rows)
 
 
-def test_key64_raises_before_any_workload(monkeypatch):
-    def no_workload(*a, **k):
-        raise AssertionError("a workload was generated")
+@pytest.mark.parametrize("pipelined", [False, True],
+                         ids=["sync", "pipelined"])
+def test_key64_runs_int64_workloads(monkeypatch, pipelined):
+    """key64 draws pk and fk as int64 and casts zipf and fk_sel to it (the
+    reference's _gen_workload); every join runs under JoinConfig(key64=
+    True) and the FK rows count |S|."""
+    import torch
 
-    monkeypatch.setattr(runner, "_gen_workload", no_workload)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        runner.ExperimentConfig(key64=True, device="cpu")
+    made, cfgs = [], []
+    gen, run = runner._gen_workload, runner.run_join
+
+    def gen_spy(*a, **k):
+        relR, relS = gen(*a, **k)
+        made.append((relR.key.dtype, relS.key.dtype, relS.payload.dtype))
+        return relR, relS
+
+    def run_spy(relR, relS, alg, cfg, device):
+        cfgs.append(cfg.key64)
+        return run(relR, relS, alg, cfg, device=device)
+
+    monkeypatch.setattr(runner, "_gen_workload", gen_spy)
+    monkeypatch.setattr(runner, "run_join", run_spy)
+    fn = (runner.run_experiments_pipelined if pipelined
+          else runner.run_experiments)
+    cfg = runner.ExperimentConfig(algorithms=("RHO", "PHT", "MWAY", "INL"),
+                                  sizes=((NR, NS),), skews=(None, 1.5),
+                                  reps=1, key64=True, device="cpu")
+    rows = fn(cfg)
+    # one workload resident at a time: drawn anew for each (alg, skew)
+    assert made == [(torch.int64,) * 3] * 8
+    assert cfgs and all(cfgs)
+    assert not [r for r in rows if r["measurement"] == "error"]
+    # Zipf draws from R's own key alphabet {1..|R|}: every row matches
+    got = {(x["alg"], x["skew"]): x["value"] for x in rows
+           if x["measurement"] == "matches"}
+    assert got == {(a, z): float(NS) for a in cfg.algorithms
+                   for z in (0.0, 1.5)}
 
 
 def test_logger_line_format_matches_the_references():

@@ -55,6 +55,12 @@ def test_imports_without_jax():
             "aqp_tpu_torch.joins.sortmerge, "
             "aqp_tpu_torch.experiments.partition_bench, "
             "aqp_tpu_torch.experiments.membench, "
+            "aqp_tpu_torch.experiments.sweep, "
+            "aqp_tpu_torch.experiments.join_overview, "
+            "aqp_tpu_torch.experiments.skew, "
+            "aqp_tpu_torch.experiments.selectivity, "
+            "aqp_tpu_torch.experiments.scaling, "
+            "aqp_tpu_torch.experiments.exact_core, "
             "aqp_tpu_torch.queries, aqp_tpu_torch.queries.tables, "
             "aqp_tpu_torch.queries.filters, aqp_tpu_torch.queries.tpch, "
             "aqp_tpu_torch.queries.fused, aqp_tpu_torch.data.tpch_dbgen, "
@@ -154,6 +160,12 @@ def test_entry_points_without_device_raise_when_no_cuda():
         lambda: partition_bench.main(["--small"]),
         lambda: membench.main(["--small"]),
     ]
+    from aqp_tpu_torch.experiments import (join_overview, scaling,
+                                           selectivity, skew)
+
+    calls += [lambda m=m: m.main(["--small"])
+              for m in (join_overview, skew, selectivity, scaling)]
+    calls += [lambda: join_overview.main(["--small", "--key64"])]
     from aqp_tpu_torch.__main__ import main as cli_main
     from aqp_tpu_torch.harness import (ExperimentConfig, run_experiments,
                                        run_experiments_pipelined)

@@ -204,14 +204,6 @@ def test_cpu_run_launches_no_kernel():
                                         trstats.LAUNCHES)]
 
 
-@pytest.mark.parametrize("name", NAMES)
-def test_int64_keys_raise(name):
-    k = torch.arange(1, 65, dtype=torch.int64)
-    r = TRelation(k, k)
-    with pytest.raises(TypeError, match="int32"):
-        trun(r, r, name, device="cpu")
-
-
 @pytest.mark.parametrize("name", PIPELINED)
 @pytest.mark.parametrize("checksum", [True, False], ids=["sum", "keys"])
 def test_empty_probe_side_matches_reference(checksum, name):

@@ -151,14 +151,6 @@ def test_keys_at_or_above_2_30_do_not_alias(name):
     assert _pair(res) == (2, int(exact.checksum))
 
 
-def test_non_int32_keys_raise():
-    k = torch.arange(1, 9, dtype=torch.int64)
-    r = TRelation(k, k)
-    for name in NAMES:
-        with pytest.raises(TypeError, match="int32"):
-            trun(r, r, name, device="cpu")
-
-
 # MWAY's range route: the pipeline at salt 1 with the observed-domain
 # scale.  A small geometry keeps the reference's interpret mode quick.
 SMALL = dict(block_rows=64, slot_rows=8, f1=16, f2=4, kd_slot_rows=16)
