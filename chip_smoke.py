@@ -211,7 +211,28 @@ Phases, each printed on one line with its elapsed seconds:
      blocks, windows or regions, each against its slice); every launch
      of that pass a held one, every kernel the sweeps launched held;
      one {"key64"...} line;
- 17. after every main path, so that its work does not change the state
+ 17. the distributed layer (aqp_tpu_torch/parallel) on one rank: a
+     one-rank group brought up by parallel.bringup.initialize_distributed
+     (NCCL for the card's tensors, gloo for the CPU's, a TCP store on a
+     free localhost port) and 1-D and 1 x 1 meshes; on phase 4's
+     relations the hash-shuffle count join with engine "pallas" (K1, K2
+     and K3 on the shuffle's receive buffers: 26.2M R and 104.9M S
+     slots, half of them pads) and "xla", the 2-D join, the
+     materializing join, the ring, the skew tier on phase 8's z = 1.5 S
+     and dist_join_count_auto on both (tier printed), each equal to the
+     exact core (matches, checksum, the multiset of live rows) and run_join
+     RHO; the 8-shard layout laid out on the card (8 row blocks through
+     _pack_by_dest at 8 destinations, the exchange as the transpose of
+     the stacked (8, 8, cap) buffers, the "pallas" local count on each of
+     the 8 received shards), its sum equal to the one-rank answer and one
+     block's send buffers equal to the CPU's position by position; K1, K2
+     and K3 launched on the path, then every launch of a second pass held
+     to its plain version (in pieces, as in phase 16); each form timed
+     with CUDA events beside run_join RHO keys-only and checksummed; the
+     group destroyed; then experiments/weak_scaling at its full size a
+     rank (2^17 x 2^19) with one rank (a process of its own), matches =
+     |S| on every row; one {"parallel"...} line;
+ 18. after every main path, so that its work does not change the state
      the timed phases run in: the segment scatters (both) on 3,000 segments in no order
      with gaps, dead segments among them and a cut at out_rows, with no
      live segment and with none at all, every output row compared (the
@@ -222,7 +243,7 @@ Phases, each printed on one line with its elapsed seconds:
      RSTATS at phase 11's shapes (at most its output's memset and the
      kernel) and each scatter at phase 8's (the kernel alone); each
      kernel seen at least once a call.
-Each of phases 4, 7, 8, 9, 10, 11, 12, 13, 14, 15 and 16 sets the launch counts
+Each of phases 4, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16 and 17 sets the launch counts
 to 0 just before its main path and reads them just after; a kernel's launches in the
 kernels line are summed over those main paths.  The scale-up column needs 16 GiB
 of device memory (18 GiB with its bitvector).  Then one JSON line with the
@@ -269,6 +290,12 @@ from aqp_tpu_torch.ops.hashing import fib_hash32  # noqa: E402
 from aqp_tpu_torch.ops.kernels import (  # noqa: E402
     aggpipe, blocksort, build, compact, lanecompact, nphj, rho3, rstats)
 from aqp_tpu_torch.ops.kernels import scan as kscan  # noqa: E402
+from aqp_tpu_torch.parallel import bringup  # noqa: E402
+from aqp_tpu_torch.parallel import dist_join as pdj  # noqa: E402
+from aqp_tpu_torch.parallel import shuffle as pshuffle  # noqa: E402
+from aqp_tpu_torch.parallel import skew as pskew  # noqa: E402
+from aqp_tpu_torch.parallel.mesh import (  # noqa: E402
+    make_mesh, make_mesh_2d, row_block, shard_relation)
 from aqp_tpu_torch.queries import filters as F  # noqa: E402
 from aqp_tpu_torch.queries import fused, tpch  # noqa: E402
 from aqp_tpu_torch.queries import tables as TT  # noqa: E402
@@ -399,7 +426,7 @@ def call_split(name, ops: dict, kernel: str, most_ops: int) -> dict:
 
 
 def device_op_checks(rows) -> None:
-    """Phase 16, after every main path (so that its checks and profiler
+    """Phase 18, after every main path (so that its checks and profiler
     sessions do not change the state the timed phases run in): the
     segment scatters on scatter_cases, then the device operations one
     call issues, each counted in a fresh process (fresh_device_ops),
@@ -1365,13 +1392,17 @@ def main() -> int:
     # 16. 64-bit keys through every join name, join --key64 and the four
     # join-sweep drivers at full size
     print(json.dumps(key64_phase(card)), flush=True)
-    # 17. after every main path: the scatters' full-size cases and the
+    # 17. the distributed layer on one rank, phase 4's relations
+    print(json.dumps(parallel_phase(card)), flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # 18. after every main path: the scatters' full-size cases and the
     # device operations of one RSTATS or scatter call
     device_op_checks(rows)
     say(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         " GiB")
     # each kernel's launches over every phase's main path (K1 and K2 run in
-    # phases 4, 7, 8, 10, 11, 12, 14, 15 and 16)
+    # phases 4, 7, 8, 10, 11, 12, 14, 15, 16 and 17)
     total = {k: sum(p[k] for p in MAIN_PATH.values()) for k in SOURCE}
     print(json.dumps({"main_path_launches": MAIN_PATH, "total": total}),
           flush=True)
@@ -4403,6 +4434,281 @@ def key64_phase(card) -> dict:
     drivers, launched = sweeps(card)
     return {"key64": {"card": card, "ms": ms, "cli": cli_out,
                       "sweeps": drivers, "sweep_launches": launched}}
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the distributed layer on one rank, and the 8-shard layout
+
+PARALLEL_WATCHDOG_S = 600            # the phase's own watchdog
+SHARDS = 8                           # the 8-shard layout laid out on the card
+WEAK_SCALING_ARGV = ["--ranks", "1", "--reps", "3"]
+WEAK_SCALING_TIMEOUT_S = 300
+
+
+def exchange_on_one_card(rel, pad_key) -> tuple:
+    """The shuffle of `rel` over SHARDS ranks laid out on the card: each
+    row block through _pack_send_buffers at SHARDS destinations, the
+    all_to_all as the transpose of the stacked (src, dst, cap) buffers.
+    Returns (receive keys (dst, src * cap), payloads, overflow)."""
+    rows = -(-rel.num_tuples // SHARDS)
+    cap = pdj._capacity(rows, SHARDS, 2.0)
+    ks, ps, ovf = [], [], 0
+    for b in range(SHARDS):
+        k, p, o = pshuffle._pack_send_buffers(*row_block(rel, b, SHARDS),
+                                              SHARDS, cap, pad_key, 0)
+        ks.append(k)
+        ps.append(p)
+        ovf = ovf + o
+    recv = [torch.stack(x).transpose(0, 1).reshape(SHARDS, -1)
+            for x in (ks, ps)]
+    return recv[0], recv[1], ovf
+
+
+def eight_shard_layout(relR, relS) -> tuple:
+    """The 8-shard distributed count join on one card: the exchange, then
+    the "pallas" shard-local count (K1, K2, K3) on each received shard.
+    Returns (matches, checksum, overflow), summed over the shards."""
+    rk, rp, ovf_r = exchange_on_one_card(relR, pshuffle.PAD_R)
+    sk, sp, ovf_s = exchange_on_one_card(relS, pshuffle.PAD_S)
+    m, c, ovf = 0, 0, ovf_r + ovf_s
+    for d in range(SHARDS):
+        md, cd, od = pdj._local_count(rk[d], rp[d], sk[d], sp[d], "pallas")
+        m, c, ovf = m + md, c + cd, ovf + od
+    return m, c & U32, ovf
+
+
+def check_block_on_the_cpu(relS) -> None:
+    """Block 0 of S through _pack_send_buffers on the card and on the CPU:
+    equal position by position, the overflow too."""
+    rows = -(-relS.num_tuples // SHARDS)
+    cap = pdj._capacity(rows, SHARDS, 2.0)
+    key, pay = row_block(relS, 0, SHARDS)
+    card = pshuffle._pack_send_buffers(key, pay, SHARDS, cap,
+                                       pshuffle.PAD_S, 0)
+    cpu = pshuffle._pack_send_buffers(key.cpu(), pay.cpu(), SHARDS, cap,
+                                      pshuffle.PAD_S, 0)
+    require(all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu)),
+            "a block's send buffers on the card differ from the CPU's")
+
+
+def parallel_forms(relR, relS, zs, mesh, mesh2) -> dict:
+    """Phase 17's forms, label -> call, through the layer's entry points
+    on one rank (the relations are this rank's shards)."""
+    R, S, Z = (shard_relation(x, mesh) for x in (relR, relS, zs))
+    count = {eng: pdj.make_dist_join_count(mesh, R.num_tuples, S.num_tuples,
+                                           engine=eng)
+             for eng in ("pallas", "xla")}
+    # the heavy rows a rank keeps: all of S's heavy keys' rows at one rank
+    # (tests/test_skew.py's cap_heavy = |S|; the default 4,096 holds a
+    # small shard's)
+    skew_fn = pskew.make_dist_join_count_skew(mesh, R.num_tuples,
+                                              Z.num_tuples,
+                                              cap_heavy=Z.num_tuples)
+    return {
+        "count pallas": lambda: count["pallas"](R.key, R.payload, S.key,
+                                                S.payload),
+        "count xla": lambda: count["xla"](R.key, R.payload, S.key,
+                                          S.payload),
+        "2d": lambda: pdj.dist_join_count_2d(relR, relS, mesh2),
+        "materialize": lambda: pdj.dist_join_materialize(relR, relS, mesh),
+        "ring": lambda: pdj.dist_join_count_ring(relR, relS, mesh),
+        "skew z=1.5": lambda: skew_fn(R.key, R.payload, Z.key, Z.payload),
+        "auto": lambda: pdj.dist_join_count_auto(relR, relS, mesh),
+        "auto z=1.5": lambda: pdj.dist_join_count_auto(relR, zs, mesh),
+        f"{SHARDS}-shard layout": lambda: eight_shard_layout(relR, relS),
+    }
+
+
+# the forms whose shard-local join is the rho3 pipeline
+KERNEL_FORMS = ("count pallas", "2d", "auto", "auto z=1.5",
+                f"{SHARDS}-shard layout")
+
+
+def check_parallel(out, want, want_z, exact_rows) -> dict:
+    """Every form's answer against the exact core's: matches, checksum,
+    zero overflow, the materialized live rows; returns the tiers."""
+    def scalars(res):
+        return tuple(int(x) if isinstance(x, torch.Tensor) else x
+                     for x in res)
+
+    for label in ("count pallas", "count xla", "2d"):
+        require(scalars(out[label]) == want + (0, 0),
+                f"{label}: {scalars(out[label])}, exact core {want}")
+    m, c, key, rp, sp, ovf = out["materialize"]
+    require(scalars((m, c, ovf)) == want + (0,),
+            f"materialize: {scalars((m, c, ovf))}, exact core {want}")
+    require(all(torch.equal(a, b) for a, b in zip(live_rows(key, rp, sp),
+                                                  exact_rows)),
+            "materialize: the live rows differ from the exact core's")
+    require(scalars(out["ring"]) == want, f"ring: {scalars(out['ring'])}")
+    require(scalars(out["skew z=1.5"]) == want_z + (0,),
+            f"skew z=1.5: {scalars(out['skew z=1.5'])}, exact core "
+            f"{want_z}")
+    tiers = {}
+    for label, w in (("auto", want), ("auto z=1.5", want_z)):
+        m, c, tiers[label] = out[label]
+        require((m, c) == w, f"{label}: {(m, c)}, exact core {w}")
+    eight = scalars(out[f"{SHARDS}-shard layout"])
+    require(eight == want + (0,), f"the {SHARDS}-shard layout's sum "
+            f"{eight} != the one-rank answer {want}")
+    return tiers
+
+
+def parallel_held(forms) -> dict:
+    """The kernel forms once more with every launch held to its plain
+    version on the inputs the path gives it (held_to_plain); every launch
+    of the pass a held one."""
+    held = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    with held_to_plain(held):
+        for label in KERNEL_FORMS:
+            forms[label]()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    rose = {k: v for k, v in read_launches().items() if v}
+    require(rose == {k: v["launches"] for k, v in held.items()},
+            f"a launch escaped the plain check: launched {rose}, held "
+            f"{ {k: v['launches'] for k, v in held.items()} }")
+    require(all(held.get(k, {}).get("launches") for k in ("K1", "K2", "K3")),
+            f"K1, K2 or K3 not held: {held}")
+    say(f"phase 17 held to the plain versions in {secs:.2f} s: "
+        + "; ".join(f"{k} {v['launches']} launches on {len(v['inputs'])} "
+                    f"input shapes, max_abs_err {v['max_abs_err']}"
+                    for k, v in held.items()))
+    return held
+
+
+def weak_scaling_run(card) -> dict:
+    """experiments/weak_scaling at its full size a rank with one rank, in a
+    process of its own: every row's matches = |S|."""
+    from aqp_tpu_torch.experiments import weak_scaling
+
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "aqp_tpu_torch.experiments.weak_scaling",
+         *WEAK_SCALING_ARGV], capture_output=True, text=True,
+        timeout=WEAK_SCALING_TIMEOUT_S,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    secs = time.perf_counter() - t0
+    require(run.returncode == 0, f"weak_scaling exited {run.returncode}: "
+            f"{run.stderr[-3000:]}")
+    rows = [line.split() for line in run.stdout.splitlines()
+            if "matches=" in line]
+    want = [(mode, ns) for mode, _, _, ns in weak_scaling.configs(
+        "--small" in WEAK_SCALING_ARGV, 1) for _ in weak_scaling.ENGINES]
+    require(len(rows) == len(want), f"weak_scaling printed {len(rows)} "
+            f"rows, not {len(want)}: {run.stdout[-2000:]}")
+    out = {}
+    for r, (mode, ns) in zip(rows, want):
+        matches = int(r[-1].split("=")[1])
+        require(r[0] == mode and matches == ns, f"weak_scaling {r}: "
+                f"{matches} matches, |S| = {ns}")
+        out[f"{r[0]} {r[2]}"] = float(r[3])
+    say(f"phase 17 weak_scaling ({' '.join(WEAK_SCALING_ARGV)}) in "
+        f"{secs:.2f} s, best of 3 on the host clock ({card}): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in out.items()))
+    return {"s": secs, "ms": out}
+
+
+def parallel_steps(relR, relS, mesh, card) -> dict:
+    """ms of the "pallas" count join's steps at world size 1: each side's
+    pack (_pack_send_buffers) and whole shuffle (pack, all_reduce of the
+    overflow, all_to_all), and the shard-local count on the receive
+    buffers."""
+    group = mesh.get_group("shard")
+    caps = [pdj._capacity(rel.num_tuples, 1, 2.0) for rel in (relR, relS)]
+    pads = (pshuffle.PAD_R, pshuffle.PAD_S)
+    recv = [pshuffle.shuffle_relation(rel.key, rel.payload, group, cap, pad)
+            for rel, cap, pad in zip((relR, relS), caps, pads)]
+    ms = {}
+    for side, rel, cap, pad in zip("RS", (relR, relS), caps, pads):
+        ms[f"pack {side}"] = cuda_ms(lambda: pshuffle._pack_send_buffers(
+            rel.key, rel.payload, 1, cap, pad, 0), REPS)
+        ms[f"shuffle {side}"] = cuda_ms(lambda: pshuffle.shuffle_relation(
+            rel.key, rel.payload, group, cap, pad), REPS)
+    ms["local count (pallas)"] = cuda_ms(lambda: pdj._local_count(
+        recv[0][0], recv[0][1], recv[1][0], recv[1][1], "pallas"), REPS)
+    say(f"phase 17 count pallas's steps ({card}): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in ms.items()))
+    return ms
+
+
+def parallel_phase(card) -> dict:
+    """Phase 17: the distributed layer at world size 1 under NCCL on
+    phase 4's relations (phase 8's z = 1.5 S for the skew forms), each
+    form equal to the exact core and RHO; K1, K2 and K3 on its main path
+    and held to their plain versions; the 8-shard layout on the card;
+    the forms timed; weak_scaling with one rank.  Returns the parallel
+    line."""
+    faulthandler.dump_traceback_later(PARALLEL_WATCHDOG_S, exit=True)
+    t0 = time.perf_counter()
+    world = bringup.initialize_distributed(
+        f"127.0.0.1:{bringup.free_port()}", 1, 0)
+    backend = torch.distributed.get_backend()
+    mesh, mesh2 = make_mesh(device=DEV), make_mesh_2d(1, 1, device=DEV)
+    relR, relS = seeded(NR, NS, seed=11111)
+    zs = create_relation_zipf(NS, NR, 1.5, seed=22222, random_payload=True,
+                              device=DEV)
+    say(f"phase 17: world {world}, backend {backend}, meshes "
+        f"{mesh.mesh_dim_names} {tuple(mesh.shape)} and "
+        f"{mesh2.mesh_dim_names} {tuple(mesh2.shape)} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    exact = mergejoin.merge_join_count(relR.key, relR.payload, relS.key,
+                                       relS.payload)
+    exact_z = mergejoin.merge_join_count(relR.key, relR.payload, zs.key,
+                                         zs.payload)
+    want = (int(exact.matches), int(exact.checksum))
+    want_z = (int(exact_z.matches), int(exact_z.checksum))
+    rho = run_join(relR, relS, "RHO", JoinConfig(), device=DEV)[0]
+    require((int(rho.matches), int(rho.checksum)) == want and want[0] == NS,
+            f"run_join RHO {int(rho.matches), int(rho.checksum)} != the "
+            f"exact core {want}")
+    mat = mergejoin.merge_join_materialize(relR.key, relR.payload, relS.key,
+                                           relS.payload, NS)
+    exact_rows = live_rows(mat.key, mat.r_payload, mat.s_payload)
+    del mat
+    check_block_on_the_cpu(relS)
+    forms = parallel_forms(relR, relS, zs, mesh, mesh2)
+    torch.cuda.synchronize()
+    reset_launches()
+    out = {label: fn() for label, fn in forms.items()}
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in main_path_launches("17 parallel").items()
+                if v}
+    require(all(launches.get(k) for k in ("K1", "K2", "K3")),
+            f"K1, K2 or K3 not launched on the parallel path: {launches}")
+    tiers = check_parallel(out, want, want_z, exact_rows)
+    del out, exact_rows
+    torch.cuda.empty_cache()
+    say(f"phase 17: every form equals the exact core (matches {want[0]}, "
+        f"checksum {want[1]}; z = 1.5: {want_z}), overflow 0; tiers "
+        f"{tiers}; the {SHARDS}-shard layout's sum equals the one-rank "
+        f"answer; main-path launches {launches}")
+    held = parallel_held(forms)
+    ms = {}
+    for label, fn in forms.items():
+        ms[label] = cuda_ms(fn, REPS)
+        say(f"phase 17 {label}: {ms[label]:.3f} ms/call ({card})")
+    steps = parallel_steps(relR, relS, mesh, card)
+    for label, cfg in (("run_join RHO keys-only", JoinConfig(checksum=False)),
+                       ("run_join RHO checksummed", JoinConfig())):
+        ms[label] = cuda_ms(lambda: run_join(relR, relS, "RHO", cfg,
+                                                 device=DEV), REPS)
+        say(f"phase 17 {label}: {ms[label]:.3f} ms/call ({card})")
+    del forms, relR, relS, zs
+    torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+    weak = weak_scaling_run(card)
+    return {"parallel": {"card": card, "world": world, "backend": backend,
+                         "want": want, "want_z": want_z, "tiers": tiers,
+                         "launches": launches, "ms": ms, "steps": steps,
+                         "held": {k: {"launches": v["launches"],
+                                      "max_abs_err": v["max_abs_err"]}
+                                  for k, v in held.items()},
+                         "weak_scaling": weak}}
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -68,7 +68,13 @@ def test_imports_without_jax():
             "aqp_tpu_torch.harness, aqp_tpu_torch.harness.runner, "
             "aqp_tpu_torch.utils, aqp_tpu_torch.utils.logging, "
             "aqp_tpu_torch.utils.profiler, aqp_tpu_torch.utils.timing, "
-            "aqp_tpu_torch.data.native, aqp_tpu_torch.ops.streamjoin; "
+            "aqp_tpu_torch.data.native, aqp_tpu_torch.ops.streamjoin, "
+            "aqp_tpu_torch.parallel, aqp_tpu_torch.parallel.mesh, "
+            "aqp_tpu_torch.parallel.bringup, "
+            "aqp_tpu_torch.parallel.shuffle, "
+            "aqp_tpu_torch.parallel.dist_join, "
+            "aqp_tpu_torch.parallel.skew, "
+            "aqp_tpu_torch.experiments.weak_scaling; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -178,6 +184,12 @@ def test_entry_points_without_device_raise_when_no_cuda():
         lambda: run_experiments_pipelined(ExperimentConfig(
             sizes=((16, 64),))),
     ]
+    from aqp_tpu_torch.experiments import weak_scaling
+    from aqp_tpu_torch.parallel import make_mesh
+    from aqp_tpu_torch.parallel.mesh import make_mesh_2d
+
+    calls += [make_mesh, make_mesh_2d,
+              lambda: weak_scaling.main(["--small"])]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
