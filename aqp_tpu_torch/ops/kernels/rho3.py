@@ -480,13 +480,20 @@ def route_2level(packed, pay, prm: Rho3Params, with_payload: bool,
     return k2k, k2p, cnt2, nb // prm.group, ovf1 + ovf2
 
 
+def pack_pair(rk, sk, salt: int):
+    """R's and S's keys packed as one array under `salt`, R first (tag 0),
+    then S (tag 1): the pipeline's input.  Returns pack_keys' (packed,
+    alias count)."""
+    key = torch.cat([rk, sk])
+    tag = torch.cat([torch.zeros_like(rk), torch.ones_like(sk)])
+    return pack_keys(key, tag, salt)
+
+
 def _partition_2level(rk, rp, sk, sp, prm: Rho3Params, salt: int,
                       with_payload: bool, scale):
     """Pack R and S under `salt` and route them into fine slots.  Returns
     (k2, p2, cnt2, overflow + alias count)."""
-    key = torch.cat([rk, sk])
-    tag = torch.cat([torch.zeros_like(rk), torch.ones_like(sk)])
-    packed, alias = pack_keys(key, tag, salt)
+    packed, alias = pack_pair(rk, sk, salt)
     pay = torch.cat([rp, sp]) if with_payload else None
     k2k, k2p, cnt2, _, ovf = route_2level(packed, pay, prm, with_payload,
                                           scale=scale)

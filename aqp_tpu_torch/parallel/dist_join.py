@@ -21,7 +21,9 @@ ranks and reduced mod 2^32: the reference's wrapping uint32 psum.
 Engines of the shard-local count ("auto" resolves by the mesh's device):
   "pallas"  the rho3 pipeline, K1, K2 and K3: the CUDA kernels on a card
             (they launch or raise, never fall back), their plain versions
-            on the CPU;
+            on the CPU; int32 shards only (int64 ones take the exact
+            core), a real key equal to rho3's input pad reported as
+            overflow;
   "xla"     the exact sort core, ops/mergejoin.merge_join_count.
 """
 
@@ -76,14 +78,23 @@ def _local_count(rk, rp, sk, sp, engine: str):
     engine="pallas" runs the fixed-slot rho3 pipeline, the one the
     single-device RHO serves: the shuffle's pad rows (negative keys) take
     rho3's designated input pads, which K1 drops.  A slot overflow under
-    skew is returned for the caller's escalation ladder, never silent."""
-    if engine == "pallas":
+    skew is returned for the caller's escalation ladder, never silent.
+    So is a real key equal to an input pad (2^30 - 2 or 2^30 - 1), which
+    rho3 would drop unseen: each such row counts as local overflow, as
+    `joins/radix.holds_input_pads` sends the single-device RHO to the
+    exact core.  int64 tensors reach no kernel (`joins/radix.is_key64`):
+    they take the exact core under either engine."""
+    wide = any(t.dtype == torch.int64 for t in (rk, rp, sk, sp))
+    if engine == "pallas" and not wide:
         from aqp_tpu_torch.ops.kernels.rho3 import (
             PAD_R_INPUT, PAD_S_INPUT, rho_join_count_v3)
 
+        real_pads = sum(((k == PAD_R_INPUT) | (k == PAD_S_INPUT)).sum()
+                        for k in (rk, sk))
         rk = torch.where(rk < 0, PAD_R_INPUT, rk)
         sk = torch.where(sk < 0, PAD_S_INPUT, sk)
-        return rho_join_count_v3(rk, rp, sk, sp)
+        m, c, ovf = rho_join_count_v3(rk, rp, sk, sp)
+        return m, c, ovf + real_pads
     local = mergejoin.merge_join_count(rk, rp, sk, sp)
     return local.matches, local.checksum, torch.zeros_like(local.matches)
 

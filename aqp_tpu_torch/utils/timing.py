@@ -126,6 +126,30 @@ class PhaseTimer:
         return out
 
 
+def mean_ms(fn, device, reps: int = 5):
+    """Mean milliseconds per call over `reps` calls issued back to back
+    after one warm-up call, and the last call's output: CUDA events around
+    the loop on a CUDA device (the device's time to finish the calls, one
+    wait at the end, as the JAX drivers' pipelined timing), perf_counter
+    on the CPU."""
+    device = torch.device(device)
+    out = fn()
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            out = fn()
+        return (time.perf_counter() - t0) * 1e3 / reps, out
+    torch.cuda.synchronize(device)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        out = fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps, out
+
+
 def best_ms(fn, device, iters: int = 3) -> float:
     """Least milliseconds of one call of fn over `iters` calls after one
     warm-up call: CUDA events around each call on a CUDA device (the

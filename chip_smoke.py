@@ -227,12 +227,30 @@ Phases, each printed on one line with its elapsed seconds:
      the 8 received shards), its sum equal to the one-rank answer and one
      block's send buffers equal to the CPU's position by position; K1, K2
      and K3 launched on the path, then every launch of a second pass held
-     to its plain version (in pieces, as in phase 16); each form timed
-     with CUDA events beside run_join RHO keys-only and checksummed; the
-     group destroyed; then experiments/weak_scaling at its full size a
-     rank (2^17 x 2^19) with one rank (a process of its own), matches =
-     |S| on every row; one {"parallel"...} line;
- 18. after every main path, so that its work does not change the state
+     to its plain version (in pieces, as in phase 16); real keys 2^30 - 2
+     and 2^30 - 1 (rho3's input pads) through "pallas" (overflow
+     reported) and auto (the truth, tier "hash+salt"), and int64
+     relations through "pallas", the 2-D join and auto (the truth, no
+     launch); each form timed with CUDA events beside run_join RHO
+     keys-only and checksummed; the group destroyed; then
+     experiments/weak_scaling at its full size a rank (2^17 x 2^19) with
+     one rank (a process of its own), matches = |S| on every row; one
+     {"parallel"...} line;
+ 18. the six drivers at their full default sizes, each main in this
+     process (its own watchdog): rho_phases and roofline (13.1M x 52.4M),
+     scan_bench (its three families, to 2^30 rows), aggregate_bench (2^26
+     rows, 2^6 to 2^24 groups), tpch_bench (SF 1 on its dbgen store,
+     written into a temporary directory) and cracking (13.1M x 52.4M, 8
+     queries a variant) as one main path; RHO's, rho_phases' fused,
+     the roofline's and every cracking variant's matches equal to the
+     exact core's on their relations, each TPC-H query's staged and fused
+     matches equal to each other and to tpch_oracle, every aggregate row
+     within its capacity, every scan count and sum equal to the plain
+     version's on the driver's column; then the drivers again (timed calls
+     repeated less) with every kernel launch held to its plain version;
+     the roofline's table; one {"drivers"...} line with each driver's
+     seconds and rows;
+ 19. after every main path, so that its work does not change the state
      the timed phases run in: the segment scatters (both) on 3,000 segments in no order
      with gaps, dead segments among them and a cut at out_rows, with no
      live segment and with none at all, every output row compared (the
@@ -243,7 +261,7 @@ Phases, each printed on one line with its elapsed seconds:
      RSTATS at phase 11's shapes (at most its output's memset and the
      kernel) and each scatter at phase 8's (the kernel alone); each
      kernel seen at least once a call.
-Each of phases 4, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16 and 17 sets the launch counts
+Each of phases 4, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17 and 18 sets the launch counts
 to 0 just before its main path and reads them just after; a kernel's launches in the
 kernels line are summed over those main paths.  The scale-up column needs 16 GiB
 of device memory (18 GiB with its bitvector).  Then one JSON line with the
@@ -301,7 +319,7 @@ from aqp_tpu_torch.queries import fused, tpch  # noqa: E402
 from aqp_tpu_torch.queries import tables as TT  # noqa: E402
 from aqp_tpu_torch.relation import Relation  # noqa: E402
 from aqp_tpu_torch.utils import profiler  # noqa: E402
-from aqp_tpu_torch.utils.timing import PhaseTimer  # noqa: E402
+from aqp_tpu_torch.utils.timing import PhaseTimer, mean_ms  # noqa: E402
 
 NR, NS = 13_107_200, 52_428_800      # bench.py's headline workload
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM device memory rate
@@ -368,17 +386,8 @@ def require(cond: bool, what: str) -> None:
 
 def cuda_ms(fn, reps: int) -> float:
     """Mean device milliseconds per call over `reps` calls after one
-    warm-up call, from CUDA events."""
-    fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / reps
+    warm-up call, from CUDA events (utils/timing.mean_ms)."""
+    return mean_ms(fn, DEV, reps)[0]
 
 
 def kernel_split(fn, reps: int = 5) -> dict:
@@ -426,7 +435,7 @@ def call_split(name, ops: dict, kernel: str, most_ops: int) -> dict:
 
 
 def device_op_checks(rows) -> None:
-    """Phase 18, after every main path (so that its checks and profiler
+    """Phase 19, after every main path (so that its checks and profiler
     sessions do not change the state the timed phases run in): the
     segment scatters on scatter_cases, then the device operations one
     call issues, each counted in a fresh process (fresh_device_ops),
@@ -469,9 +478,7 @@ def stage_inputs(rk, rp, sk, sp, prm, with_payload, salt=rho3.HASH_C,
                  scale=None):
     """The inputs the main path hands K1, K2 and K3, from the kernels
     (MWAY's range route: salt 1 and its scale)."""
-    key = torch.cat([rk, sk])
-    tag = torch.cat([torch.zeros_like(rk), torch.ones_like(sk)])
-    packed, alias = rho3.pack_keys(key, tag, salt)
+    packed, alias = rho3.pack_pair(rk, sk, salt)
     pay = torch.cat([rp, sp]) if with_payload else None
     nb = rho3.num_blocks(packed.numel(), prm)
     scale = rho3.default_scale(prm) if scale is None else scale
@@ -1396,13 +1403,18 @@ def main() -> int:
     print(json.dumps(parallel_phase(card)), flush=True)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    # 18. after every main path: the scatters' full-size cases and the
+    # 18. the six drivers at their full default sizes
+    with tempfile.TemporaryDirectory() as store:
+        print(json.dumps(drivers_phase(card, store)), flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # 19. after every main path: the scatters' full-size cases and the
     # device operations of one RSTATS or scatter call
     device_op_checks(rows)
     say(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         " GiB")
     # each kernel's launches over every phase's main path (K1 and K2 run in
-    # phases 4, 7, 8, 10, 11, 12, 14, 15, 16 and 17)
+    # phases 4, 7, 8, 10, 11, 12, 14, 15, 16, 17 and 18)
     total = {k: sum(p[k] for p in MAIN_PATH.values()) for k in SOURCE}
     print(json.dumps({"main_path_launches": MAIN_PATH, "total": total}),
           flush=True)
@@ -4242,29 +4254,39 @@ def whole_err(name, plain):
     return err_of
 
 
-# kernel -> (the module whose name for the wrapper the joins call, that
+# kernel -> (the modules whose name for the wrapper the callers call, that
 # name, the comparison with the plain version: in pieces for the routing
 # and region kernels, whose whole plain output would not fit beside the
 # main path's tensors at the sweeps' largest point)
 HELD_KERNELS = {
-    "K1": (rho3, "k1", k1_err),
-    "K2": (rho3, "k2", k2_err),
-    "K3": (rho3, "k3", region_err(rho3.k3_plain)),
-    "K3M": (rho3, "k3m", region_err(rho3.k3m_plain)),
-    "K3TWO": (nphj, "k3two", region_err(nphj.k3two_plain)),
-    "K3TWO_MAT": (nphj, "k3two_mat", region_err(nphj.k3two_mat_plain)),
-    "compact_windows": (lanecompact, "_compact_windows", whole_err(
+    "K1": ((rho3,), "k1", k1_err),
+    "K2": ((rho3,), "k2", k2_err),
+    "K3": ((rho3,), "k3", region_err(rho3.k3_plain)),
+    "K3M": ((rho3,), "k3m", region_err(rho3.k3m_plain)),
+    "K3TWO": ((nphj,), "k3two", region_err(nphj.k3two_plain)),
+    "K3TWO_MAT": ((nphj,), "k3two_mat", region_err(nphj.k3two_mat_plain)),
+    "compact_windows": ((lanecompact,), "_compact_windows", whole_err(
         "compact_windows", lanecompact.compact_windows_plain)),
-    "scatter_segments": (lanecompact, "scatter_segments",
+    "scatter_segments": ((lanecompact, aggpipe), "scatter_segments",
                          whole_err("scatter_segments", _pair_plain)),
-    "scatter_segments_one": (lanecompact, "scatter_segments_one", whole_err(
-        "scatter_segments_one", _one_plain)),
-    "RSTATS": (skewtier, "r_cand_stats_kernel",
+    "scatter_segments_one": ((lanecompact, aggpipe), "scatter_segments_one",
+                             whole_err("scatter_segments_one", _one_plain)),
+    "RSTATS": ((skewtier,), "r_cand_stats_kernel",
                whole_err("RSTATS", rstats.r_cand_stats_plain)),
+    "scan_count": ((kscan,), "count", whole_err("scan_count",
+                                                kscan.count_plain)),
+    "scan_sum": ((kscan,), "sum_", whole_err("scan_sum", kscan.sum_plain)),
+    "scan_bitvector": ((kscan,), "bitvector",
+                       whole_err("scan_bitvector", kscan.bitvector_plain)),
+    "K3AGG": ((aggpipe,), "k3agg", whole_err("K3AGG", aggpipe.k3agg_plain)),
 }
 
 
 def _held_call(name, kernel, err_of, held, *args, **kw):
+    if name == "compact_windows":   # its launch count is kept by form
+        name = lanecompact._form(kw.get("with_ids", False),
+                                 kw.get("with_values", False),
+                                 kw.get("dict_tables"))
     got = kernel(*args, **kw)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -4289,10 +4311,11 @@ def held_to_plain(held):
     inputs and requires equal outputs (its comparison in HELD_KERNELS);
     `held` gathers each kernel's held launches and input shapes."""
     saved = {}
-    for name, (mod, attr, err_of) in HELD_KERNELS.items():
-        saved[(mod, attr)] = kernel = getattr(mod, attr)
-        setattr(mod, attr, functools.partial(_held_call, name, kernel,
-                                             err_of, held))
+    for name, (mods, attr, err_of) in HELD_KERNELS.items():
+        for mod in mods:
+            saved[(mod, attr)] = kernel = getattr(mod, attr)
+            setattr(mod, attr, functools.partial(_held_call, name, kernel,
+                                                 err_of, held))
     try:
         yield
     finally:
@@ -4635,6 +4658,72 @@ def parallel_steps(relR, relS, mesh, card) -> dict:
     return ms
 
 
+def pad_key_relations(wide: bool) -> tuple:
+    """R = {2^30 - 2, 2^30 - 1, 5, 7, 9, 100 ... 399}, S = {2^30 - 2,
+    2^30 - 1, 5, 5, 9, 11, 100 ... 399 three times}, seeded payloads: 905
+    matches.  wide: int64 keys past 2^40, payloads past 32 bits."""
+    pads = [rho3.PAD_R_INPUT, rho3.PAD_S_INPUT]
+    rk = torch.tensor(pads + [5, 7, 9] + list(range(100, 400)),
+                      dtype=torch.int64)
+    sk = torch.tensor(pads + [5, 5, 9, 11] + list(range(100, 400)) * 3,
+                      dtype=torch.int64)
+    gen = torch.Generator().manual_seed(2021)
+    bound = 1 << (40 if wide else 31)
+    rels = []
+    for k in (rk, sk):
+        pay = torch.randint(-bound, bound, k.shape, generator=gen,
+                            dtype=torch.int64)
+        k = k + (1 << 40) if wide else k
+        dtype = torch.int64 if wide else torch.int32
+        rels.append(Relation(key=k.to(DEV, dtype), payload=pay.to(DEV,
+                                                                   dtype)))
+    return tuple(rels)
+
+
+def pad_key_checks(mesh, mesh2) -> dict:
+    """Real keys equal to rho3's input pads through "pallas" (overflow
+    reported, never a short count) and auto (the truth, tier
+    "hash+salt"); int64 relations through "pallas", the 2-D join and auto
+    (the truth, no kernel launched).  The truth is the exact core's."""
+    out = {}
+    for wide in (False, True):
+        r, s = pad_key_relations(wide)
+        ex = mergejoin.merge_join_count(r.key, r.payload, s.key, s.payload)
+        want = (int(ex.matches), int(ex.checksum))
+        require(want[0] == 905, f"the pad-key relations hold {want[0]} "
+                "matches, not 905")
+        R, S = shard_relation(r, mesh), shard_relation(s, mesh)
+        R2, S2 = shard_relation(r, mesh2), shard_relation(s, mesh2)
+        reset_launches()
+        one = pdj.make_dist_join_count(mesh, R.num_tuples, S.num_tuples,
+                                       engine="pallas")
+        two = pdj.make_dist_join_count_2d(mesh2, R2.num_tuples,
+                                          S2.num_tuples, engine="pallas")
+        got = {"pallas": tuple(map(int, one(R.key, R.payload, S.key,
+                                            S.payload))),
+               "2d pallas": tuple(map(int, two(R2.key, R2.payload, S2.key,
+                                               S2.payload))),
+               "auto": pdj.dist_join_count_auto(r, s, mesh)}
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in read_launches().items() if v}
+        label = "int64" if wide else "pad keys"
+        if wide:
+            require(not launches, f"int64 relations launched {launches}")
+            require(got["pallas"] == got["2d pallas"] == want + (0, 0)
+                    and got["auto"] == want + ("hash",),
+                    f"{label}: {got}, the exact core {want}")
+        else:
+            require(all(got[k][2] > 0 and got[k][3] == 0
+                        for k in ("pallas", "2d pallas")),
+                    f"{label}: the overflow is not reported: {got}")
+            require(got["auto"] == want + ("hash+salt",),
+                    f"{label}: auto {got['auto']}, the exact core {want}")
+        out[label] = {"want": want, "got": got, "launches": launches}
+        say(f"phase 17 {label}: {got}, the exact core {want}, launches "
+            f"{launches}")
+    return out
+
+
 def parallel_phase(card) -> dict:
     """Phase 17: the distributed layer at world size 1 under NCCL on
     phase 4's relations (phase 8's z = 1.5 S for the skew forms), each
@@ -4687,6 +4776,7 @@ def parallel_phase(card) -> dict:
         f"{tiers}; the {SHARDS}-shard layout's sum equals the one-rank "
         f"answer; main-path launches {launches}")
     held = parallel_held(forms)
+    pad_keys = pad_key_checks(mesh, mesh2)
     ms = {}
     for label, fn in forms.items():
         ms[label] = cuda_ms(fn, REPS)
@@ -4704,10 +4794,214 @@ def parallel_phase(card) -> dict:
     return {"parallel": {"card": card, "world": world, "backend": backend,
                          "want": want, "want_z": want_z, "tiers": tiers,
                          "launches": launches, "ms": ms, "steps": steps,
+                         "pad_keys": pad_keys,
                          "held": {k: {"launches": v["launches"],
                                       "max_abs_err": v["max_abs_err"]}
                                   for k, v in held.items()},
                          "weak_scaling": weak}}
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: the six drivers at their full default sizes
+
+DRIVERS_WATCHDOG_S = 600             # the phase's own watchdog
+DRIVER_TPCH_SCALE = 1.0              # tpch_bench's default scale factor
+DRIVER_NAMES = ("rho_phases", "roofline", "scan_bench", "aggregate_bench",
+                "tpch_bench", "cracking")
+# the held pass repeats each timed call less often: the same inputs and
+# shapes as the main path's, fewer identical calls
+DRIVER_HELD_ARGV = {"scan_bench": ["--reps", "1"],
+                    "aggregate_bench": ["--reps", "1"],
+                    "tpch_bench": ["--reps", "1"],
+                    "cracking": ["--queries", "2"]}
+
+
+def driver_modules() -> dict:
+    import importlib
+
+    return {name: importlib.import_module(
+        f"aqp_tpu_torch.experiments.{name}") for name in DRIVER_NAMES}
+
+
+def run_driver(name, mod, argv) -> tuple:
+    """mod.main(argv) with its output captured (its last lines printed if
+    it raises, then the error goes on); returns (its result, seconds,
+    output lines)."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
+            out = mod.main(argv)
+        torch.cuda.synchronize()
+    except BaseException:
+        print("\n".join(buf.getvalue().splitlines()[-40:]), flush=True)
+        raise
+    return out, time.perf_counter() - t0, buf.getvalue().splitlines()
+
+
+def driver_rows(name, res) -> int:
+    """The rows a driver's result holds (the roofline: its table rows)."""
+    if name == "roofline":
+        return len(res["stages"]) + len(res["kernels"])
+    if name == "scan_bench":
+        return sum(map(len, res.values()))
+    return len(res)
+
+
+def exact_fk_matches(nr, ns, seeds) -> int:
+    """The exact core's matches on the drivers' PK / FK relations."""
+    r = create_relation_pk(nr, seed=seeds[0], device=DEV)
+    s = create_relation_fk(ns, nr, seed=seeds[1], device=DEV)
+    got = int(mergejoin.merge_join_count_keys(r.key, s.key).matches)
+    del r, s
+    torch.cuda.empty_cache()
+    return got
+
+
+def check_scan_rows(mod, fams) -> int:
+    """Every count and sum row's answer (the timed calls' last) equals the
+    plain version's on the driver's own column; returns the rows held."""
+    want = {}
+    rows = [r for fam in fams.values() for r in fam
+            if r[1] in ("count", "sum")]
+    for n in sorted({r[3] for r in rows}):
+        col = mod.make_col(n, DEV)
+        for r in rows:
+            if r[3] == n:
+                lo, hi = mod.sel_bounds(r[4])
+                plain = kscan.count_plain if r[1] == "count" else \
+                    kscan.sum_plain
+                want[id(r)] = int(plain(col, lo, hi))
+        del col
+        torch.cuda.empty_cache()
+    for r in rows:
+        require(r[9] == want[id(r)], f"scan_bench {r[:6]}: {r[9]}, the "
+                f"plain version {want[id(r)]}")
+    return len(rows)
+
+
+def check_drivers(mods, out, store) -> dict:
+    """Each driver's answers: RHO's, every cracking variant's, the
+    roofline's and rho_phases' fused count equal to the exact core's on
+    their relations; each TPC-H query's staged and fused matches equal to
+    each other and to tpch_oracle on the store's tables; every aggregate
+    row within its capacity; every scan count and sum equal to the plain
+    version's.  Returns a summary."""
+    rp, rf, sc, ag, tp, cr = (out[k][0] for k in DRIVER_NAMES)
+    m = mods["rho_phases"]
+    want = exact_fk_matches(*m.SIZES[False], m.SEEDS)
+    got = {r[4] for r in rp if r[4] is not None}
+    require(got == {want}, f"rho_phases: matches {got}, exact core {want}")
+    m = mods["roofline"]
+    want_rf = exact_fk_matches(*m.SIZES[False], m.SEEDS)
+    require(rf["matches"] == want_rf, f"roofline: {rf['matches']} matches, "
+            f"exact core {want_rf}")
+    m = mods["cracking"]
+    want_cr = exact_fk_matches(*m.SIZES[False], m.SEEDS)
+    got = {(r[0], r[4]) for r in cr}
+    require(got == {(v, want_cr) for v in m.VARIANTS},
+            f"cracking: {got}, exact core {want_cr}")
+    for r in ag:
+        cap = mods["aggregate_bench"].capacity(r[1])
+        require(r[2] <= cap, f"aggregate_bench {r}: live groups past {cap}")
+    base = tpch_dbgen.ensure_generated(DRIVER_TPCH_SCALE, root=store)
+    tables = tuple(getattr(tpch_loader, f"load_{t}")(base, device=DEV)
+                   for t in TPCH_NAMES)
+    oracle = {q: tpch_oracle(q, *tables) for q in TPCH_PLANS}
+    del tables
+    torch.cuda.empty_cache()
+    for q, w in oracle.items():
+        got = {(r[2], r[6]) for r in tp if r[0] == q}
+        require(got == {("staged", w), ("fused", w)}, f"tpch_bench {q}: "
+                f"{got}, the oracle {w}")
+    held = check_scan_rows(mods["scan_bench"], sc)
+    return {"rho_exact": want, "roofline_exact": want_rf,
+            "cracking_exact": want_cr, "tpch_oracle": oracle,
+            "scan_rows_held": held,
+            "aggregate_engines": {r[1]: r[3] for r in ag}}
+
+
+def drivers_held(mods, argvs, launched) -> dict:
+    """The six drivers once more, timed calls repeated less
+    (DRIVER_HELD_ARGV), with every kernel launch held to its plain version
+    on the inputs the driver gives it (held_to_plain); every launch of the
+    pass a held one, every kernel of the main path held."""
+    held = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    with held_to_plain(held):
+        for name, mod in mods.items():
+            run_driver(name, mod, argvs[name] + DRIVER_HELD_ARGV.get(name,
+                                                                      []))
+            torch.cuda.empty_cache()
+    secs = time.perf_counter() - t0
+    rose = {k: v for k, v in read_launches().items() if v}
+    require(rose == {k: v["launches"] for k, v in held.items()},
+            f"a launch escaped the plain check: launched {rose}, held "
+            f"{ {k: v['launches'] for k, v in held.items()} }")
+    missing = sorted(set(launched) - set(held))
+    require(not missing, f"the drivers launched {missing}, never held")
+    say(f"phase 18 drivers held to the plain versions in {secs:.2f} s: "
+        + "; ".join(f"{k} {v['launches']} launches on {len(v['inputs'])} "
+                    f"input shapes, max_abs_err {v['max_abs_err']}"
+                    for k, v in held.items()))
+    return {"s": secs, **{k: {"launches": v["launches"],
+                              "max_abs_err": v["max_abs_err"]}
+                          for k, v in held.items()}}
+
+
+def driver_summary(name, res, lines) -> dict:
+    """What a driver measured, in a few numbers for the drivers line."""
+    if name == "roofline":
+        return {"stages": res["stages"], "kernels": res["kernels"],
+                "checksummed_s": res["checksummed_s"],
+                "table": [ln for ln in lines if ln.startswith("|")]}
+    if name == "scan_bench":
+        return {fam: {f"{r[1]} {r[2]} n={r[3]} sel={r[4]} {r[5]}": r[6]
+                      for r in rows} for fam, rows in res.items()}
+    if name == "rho_phases":
+        return [r[:4] for r in res]
+    return [list(r[:8]) for r in res]
+
+
+def drivers_phase(card, store) -> dict:
+    """Phase 18: rho_phases, roofline, scan_bench, aggregate_bench,
+    tpch_bench (SF 1, its dbgen store under `store`) and cracking, each
+    main in this process at its full default size on the card, as one main
+    path; their answers checked (check_drivers); then the drivers again
+    with every launch held to its plain version.  Returns the drivers
+    line."""
+    faulthandler.dump_traceback_later(DRIVERS_WATCHDOG_S, exit=True)
+    mods = driver_modules()
+    argvs = {name: ["--device", DEV] for name in DRIVER_NAMES}
+    argvs["tpch_bench"] += ["--store", store, "--scale",
+                            str(DRIVER_TPCH_SCALE)]
+    out = {}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reset_launches()
+    for name, mod in mods.items():
+        out[name] = run_driver(name, mod, argvs[name])
+        say(f"phase 18 driver {name}: {driver_rows(name, out[name][0])} "
+            f"rows in {out[name][1]:.2f} s ({card})")
+        torch.cuda.empty_cache()
+    launched = {k: v for k, v in main_path_launches("18 drivers").items()
+                if v}
+    say(f"phase 18 drivers' launches: {launched}")
+    for k in ("K1", "K2", "K3", "scan_count", "scan_sum", "scan_bitvector",
+              "K3AGG", "compact_windows_index"):
+        require(launched.get(k), f"{k} was not launched by the drivers")
+    checks = check_drivers(mods, out, store)
+    say(f"phase 18 answers: {json.dumps(checks)}")
+    for line in out["roofline"][2]:
+        if line.startswith(("|", "Card", "Checksummed")):
+            say(f"phase 18 roofline {line}")
+    held = drivers_held(mods, argvs, launched)
+    return {"drivers": {
+        "card": card, "launches": launched, "checks": checks, "held": held,
+        **{name: {"s": secs, "rows": driver_rows(name, res),
+                  "measured": driver_summary(name, res, lines)}
+           for name, (res, secs, lines) in out.items()}}}
 
 
 if __name__ == "__main__":

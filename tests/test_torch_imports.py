@@ -74,7 +74,13 @@ def test_imports_without_jax():
             "aqp_tpu_torch.parallel.shuffle, "
             "aqp_tpu_torch.parallel.dist_join, "
             "aqp_tpu_torch.parallel.skew, "
-            "aqp_tpu_torch.experiments.weak_scaling; "
+            "aqp_tpu_torch.experiments.weak_scaling, "
+            "aqp_tpu_torch.experiments.rho_phases, "
+            "aqp_tpu_torch.experiments.roofline, "
+            "aqp_tpu_torch.experiments.scan_bench, "
+            "aqp_tpu_torch.experiments.aggregate_bench, "
+            "aqp_tpu_torch.experiments.tpch_bench, "
+            "aqp_tpu_torch.experiments.cracking; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -190,9 +196,61 @@ def test_entry_points_without_device_raise_when_no_cuda():
 
     calls += [make_mesh, make_mesh_2d,
               lambda: weak_scaling.main(["--small"])]
+    from aqp_tpu_torch.experiments import (aggregate_bench, cracking,
+                                           rho_phases, roofline, scan_bench,
+                                           tpch_bench)
+
+    calls += [lambda m=m: m.main(["--small"])
+              for m in (rho_phases, roofline, scan_bench, aggregate_bench,
+                        tpch_bench, cracking)]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def _tiny_drivers(monkeypatch) -> dict:
+    """The six drivers' modules -> their argv, at sizes cut to a few
+    thousand rows (tpch_bench's staged joins by PSM; no output flag)."""
+    from aqp_tpu_torch.experiments import (aggregate_bench, cracking,
+                                           rho_phases, roofline, scan_bench,
+                                           tpch_bench)
+
+    for mod in (rho_phases, roofline, cracking):
+        monkeypatch.setitem(mod.SIZES, True, (1 << 10, 1 << 12))
+    monkeypatch.setattr(rho_phases, "FUSED_REPS", 1)
+    monkeypatch.setattr(roofline, "REPS", 1)
+    monkeypatch.setitem(scan_bench.SELECTIVITY_ROWS, True,
+                        {m: 1 << 14 for m in scan_bench.MODES})
+    monkeypatch.setitem(scan_bench.SCALEUP_ROWS, True, (1 << 14,))
+    monkeypatch.setitem(scan_bench.RESIDENCY_ROWS, True, 1 << 14)
+    monkeypatch.setitem(aggregate_bench.ROWS_LOG2, True, 12)
+    monkeypatch.setitem(aggregate_bench.EXPONENTS, True, (4,))
+    cpu = ["--small", "--device", "cpu"]
+    return {rho_phases: cpu, roofline: cpu,
+            scan_bench: cpu + ["--reps", "1"],
+            aggregate_bench: cpu + ["--reps", "1"],
+            tpch_bench: cpu + ["--synthetic", "--scale", "0.001", "--reps",
+                               "1", "--algorithm", "PSM"],
+            cracking: cpu + ["--queries", "1"]}
+
+
+def test_drivers_write_nothing_without_their_output_flag(tmp_path,
+                                                         monkeypatch):
+    """rho_phases, roofline, scan_bench, aggregate_bench, tpch_bench
+    (synthetic tables: the dbgen store is the only other file it writes)
+    and cracking, run in an empty directory without --csv / --out /
+    --csv-dir: the directory stays empty (the JAX drivers write under
+    results/)."""
+    runs = _tiny_drivers(monkeypatch)
+    monkeypatch.chdir(tmp_path)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)    # the suite's six workers share the cores
+    try:
+        for mod, argv in runs.items():
+            assert mod.main(argv)
+            assert list(tmp_path.iterdir()) == [], mod.__name__
+    finally:
+        torch.set_num_threads(threads)
 
 
 def test_kernel_wrappers_reject_other_devices():

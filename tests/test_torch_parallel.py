@@ -229,6 +229,86 @@ def test_every_rank_returns_the_same_scalars(port, world):
         same_on_every_rank(results, case)
 
 
+
+# ---------------------------------------------------------------------------
+# Real keys equal to rho3's input pads, and int64 relations, in the
+# shard-local "pallas" engine: held to the truth, since the reference's
+# engine drops those keys too
+
+PAD_KEYS = (2**30 - 2, 2**30 - 1)
+U32 = 0xFFFFFFFF
+
+
+@functools.lru_cache(maxsize=None)
+def pad_key_inputs() -> dict:
+    """"pads": int32 relations holding both input-pad values as real keys;
+    "wide": int64 relations (keys past 2^40, payloads past 32 bits)."""
+    rk = np.array([*PAD_KEYS, 5, 7, 9, *range(100, 400)], np.int64)
+    sk = np.array([*PAD_KEYS, 5, 5, 9, 11,
+                   *np.tile(np.arange(100, 400), 3)], np.int64)
+    rng = np.random.default_rng(2021)
+    rp, sp = (rng.integers(-(1 << 31), 1 << 31, k.size) for k in (rk, sk))
+    wide = [rk + (1 << 40), rng.integers(-(1 << 40), 1 << 40, rk.size),
+            sk + (1 << 40), rng.integers(-(1 << 40), 1 << 40, sk.size)]
+    return {"pads": tuple(c.astype(np.int32) for c in (rk, rp, sk, sp)),
+            "wide": tuple(wide)}
+
+
+def truth(rk, rp, sk, sp) -> tuple:
+    """(matches, checksum): every (R, S) pair of equal keys, the checksum
+    the sum of both payloads' low 32 bits mod 2^32."""
+    hit = rk[:, None] == sk[None, :]
+    ck = (rp.astype(np.int64)[:, None] & U32) + (sp.astype(np.int64) & U32)
+    return int(hit.sum()), int(ck[hit].sum()) & U32
+
+
+@pytest.fixture(scope="module")
+def pad_cases():
+    """(world, input name) -> every rank's pad_key_cases, each spawned
+    once."""
+    got = {}
+
+    def world(n, name):
+        if (n, name) not in got:
+            got[n, name] = cases.spawn_pad_key_cases(
+                n, name, pad_key_inputs()[name])
+        return got[n, name]
+    return world
+
+
+@pytest.mark.parametrize("world", (1, 3))
+def test_pallas_engine_reports_real_input_pad_keys(pad_cases, world):
+    """rho3 would drop the keys 2^30 - 2 and 2^30 - 1 unseen: the engine
+    reports them as overflow (1-D and 2-D), never a short count."""
+    want = truth(*pad_key_inputs()["pads"])
+    assert want[0] == 905
+    results = pad_cases(world, "pads")
+    for case in ("pallas", "2d pallas"):
+        m, c, ovf_r, ovf_s = same_on_every_rank(results, case)
+        assert ovf_r > 0 and ovf_s == 0, (case, m, ovf_r)
+    assert same_on_every_rank(results, "xla") == want + (0, 0)
+
+
+@pytest.mark.parametrize("world", (1, 3))
+def test_auto_on_a_card_answers_real_input_pad_keys(pad_cases, world):
+    """With "auto" resolved to "pallas", as on a card, the ladder climbs
+    past the reported overflow to the exact core."""
+    want = truth(*pad_key_inputs()["pads"])
+    assert same_on_every_rank(pad_cases(world, "pads"), "auto") == (
+        *want, "hash+salt")
+
+
+@pytest.mark.parametrize("world", (1, 3))
+@pytest.mark.parametrize("case", ["pallas", "2d pallas", "xla", "auto"])
+def test_int64_relations_reach_no_kernel(pad_cases, world, case):
+    """int64 shards take the exact core under "pallas" too: the answer is
+    the truth with every rho3 kernel wrapper made to raise."""
+    want = truth(*pad_key_inputs()["wide"])
+    assert want[0] == 905
+    tail = ("hash",) if case == "auto" else (0, 0)
+    assert same_on_every_rank(pad_cases(world, "wide"), case) == (
+        *want, *tail)
+
 # ---------------------------------------------------------------------------
 # The modules: the shuffle's buffers, the heavy keys, the shards
 

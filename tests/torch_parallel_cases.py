@@ -98,6 +98,46 @@ def spawn_cases(world: int, inputs: dict) -> list:
     return bringup.spawn_ranks(run_cases, world, (inputs,), timeout_s=240.0)
 
 
+def _kernel_called(*args, **kw):
+    raise AssertionError("a kernel wrapper was called")
+
+
+def pad_key_cases(rank: int, world: int, name: str, cols) -> dict:
+    """The shard-local "pallas" engine (1-D and 2-D, and "auto" resolved
+    as on a card: "pallas") beside "xla" on one relation pair: "pads",
+    int32 relations holding real keys equal to rho3's input pads, or
+    "wide", int64 relations, with every rho3 kernel wrapper made to
+    raise (no int64 tensor may reach one)."""
+    from aqp_tpu_torch.ops.kernels import rho3
+
+    mesh = make_mesh(world, device="cpu")
+    mesh2 = make_mesh_2d(1, world, device="cpu")
+    dj._resolve_engine = lambda engine, device_type: (
+        "pallas" if engine == "auto" else engine)
+    if name == "wide":
+        for attr in ("k1", "k2", "k3", "k3m"):
+            setattr(rho3, attr, _kernel_called)
+    r, s = relation(cols[:2]), relation(cols[2:])
+    R, S = shard_relation(r, mesh), shard_relation(s, mesh)
+    out = {}
+    for engine in ("pallas", "xla"):
+        fn = dj.make_dist_join_count(mesh, R.num_tuples, S.num_tuples,
+                                     engine=engine)
+        out[engine] = ints(*fn(R.key, R.payload, S.key, S.payload))
+    R2, S2 = shard_relation(r, mesh2), shard_relation(s, mesh2)
+    fn = dj.make_dist_join_count_2d(mesh2, R2.num_tuples, S2.num_tuples,
+                                    engine="pallas")
+    out["2d pallas"] = ints(*fn(R2.key, R2.payload, S2.key, S2.payload))
+    out["auto"] = dj.dist_join_count_auto(r, s, mesh)
+    return out
+
+
+def spawn_pad_key_cases(world: int, name: str, cols) -> list:
+    """pad_key_cases on `world` gloo ranks, in rank order."""
+    return bringup.spawn_ranks(pad_key_cases, world, (name, cols),
+                               timeout_s=240.0)
+
+
 def fail_on_rank_one(rank: int, world: int):
     if rank == 1:
         raise ValueError("rank one fails")
