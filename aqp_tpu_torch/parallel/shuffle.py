@@ -29,12 +29,17 @@ def _dest_bits(n_dest: int) -> int:
     return max(1, (n_dest - 1).bit_length())
 
 
+def destination(key, n_dest: int, salt: int = 0):
+    """The group rank that owns each key: its hash bucket mod n_dest."""
+    return partition_hash(key, _dest_bits(n_dest), salt=salt) % n_dest
+
+
 def _pack_send_buffers(key, payload, n_dest: int, capacity: int, pad_key,
                        salt: int):
     """Bucket local rows by hash destination into (n_dest, capacity)
     buffers: the destination, then _pack_by_dest."""
-    dest = partition_hash(key, _dest_bits(n_dest), salt=salt) % n_dest
-    return _pack_by_dest(key, payload, dest, n_dest, capacity, pad_key)
+    return _pack_by_dest(key, payload, destination(key, n_dest, salt),
+                         n_dest, capacity, pad_key)
 
 
 def _pack_by_dest(key, payload, dest, n_dest: int, capacity: int, pad_key):
@@ -112,12 +117,11 @@ def shuffle_relation_hier(key, payload, host_group, chip_group,
     level on every rank."""
     nh = dist.get_world_size(host_group)
     nc = dist.get_world_size(chip_group)
-    bits = _dest_bits(nh * nc)
-    dest = partition_hash(key, bits, salt=salt) % (nh * nc)
+    dest = destination(key, nh * nc, salt)
     bk, bp, ovf1 = _pack_by_dest(key, payload, dest // nc, nh, cap_host,
                                  pad_key)
     k1, p1 = _exchange(bk, host_group), _exchange(bp, host_group)
-    dest2 = partition_hash(k1, bits, salt=salt) % (nh * nc) % nc
+    dest2 = destination(k1, nh * nc, salt) % nc
     bk2, bp2, ovf2 = _pack_by_dest(k1, p1, dest2, nc, cap_chip, pad_key)
     ovf = ovf1 + ovf2
     dist.all_reduce(ovf, group=host_group)

@@ -94,6 +94,49 @@ def _split_by_membership(key, payload, heavy_sorted, pad_key,
     return hk[:-1], hp[:-1], lk, lp, ovf
 
 
+def _heavy_rows(key, heavy_sorted, pad_key):
+    """This shard's rows whose key is in heavy_sorted, a 0-dim int64."""
+    pos = torch.searchsorted(heavy_sorted, key).clamp(
+        0, heavy_sorted.numel() - 1)
+    return ((heavy_sorted[pos] == key) & (key != pad_key)).sum()
+
+
+HEAVY_K = 32          # candidate heavy keys a rank
+CAP_HEAVY = 4096      # the heavy buffer's default rows
+# bytes the skew tier holds a heavy-buffer row on each rank at most: the
+# buffers and the all-gathered R rows (key and payload), then the general
+# core's sorted union of them with its int64 scans
+_SKEW_BYTES_PER_ROW = 96
+
+
+def heavy_capacity(rk, sk, group, heavy_threshold: int, limit: int) -> int:
+    """The heavy buffer's rows (cap_heavy) that the skew tier needs on
+    `group`: the most heavy rows that any rank holds (its S rows, or its R
+    rows, under the keys detect_heavy_keys finds with HEAVY_K candidates a
+    rank), from one all_reduce (MAX), with an eighth more for margin, at
+    least CAP_HEAVY, at most `limit` (the rank's S shard, which holds every
+    heavy S row).  The same on every rank.  Raises, with the row count,
+    where the tier's buffers would not fit in the free memory of some
+    rank's card."""
+    heavy = detect_heavy_keys(sk, group, HEAVY_K, heavy_threshold, PAD_S)
+    free = (torch.cuda.mem_get_info(sk.device)[0] if sk.is_cuda
+            else 1 << 62)
+    # one collective: the largest heavy counts and the least free bytes
+    t = torch.stack([_heavy_rows(sk, heavy, PAD_S),
+                     _heavy_rows(rk, heavy, PAD_R),
+                     torch.tensor(-free, device=sk.device)])
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    need, free = int(t[:2].max()), -int(t[2])
+    cap = min(limit, max(CAP_HEAVY, need + need // 8))
+    n = dist.get_world_size(group)
+    if (n + 2) * cap * _SKEW_BYTES_PER_ROW > free:
+        raise RuntimeError(
+            f"the skew tier's heavy buffers do not fit: {need} heavy rows "
+            f"on a rank, {cap} rows a buffer over {n} ranks, "
+            f"{free} bytes free")
+    return cap
+
+
 def dist_join_count_skew_body(rk, rp, sk, sp, group, cap_r: int,
                               cap_s: int, heavy_threshold: int,
                               heavy_k: int = 16, cap_heavy: int = 1024):
@@ -121,8 +164,8 @@ def dist_join_count_skew_body(rk, rp, sk, sp, group, cap_r: int,
 
 def make_dist_join_count_skew(mesh: DeviceMesh, nr_shard: int,
                               ns_shard: int, axis: str = "shard",
-                              safety: float = 2.0, heavy_k: int = 32,
-                              cap_heavy: int = 4096,
+                              safety: float = 2.0, heavy_k: int = HEAVY_K,
+                              cap_heavy: int = CAP_HEAVY,
                               heavy_threshold: int = 0):
     """The skew-aware distributed join (cf. make_dist_join_count):
     fn(rk, rp, sk, sp) on this rank's shard returns (matches, checksum,

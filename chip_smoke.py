@@ -295,7 +295,8 @@ from aqp_tpu_torch.data import (  # noqa: E402
     tpch_dbgen, tpch_loader)
 from aqp_tpu_torch import engine  # noqa: E402
 from aqp_tpu_torch.experiments import (  # noqa: E402
-    membench, partition_bench)
+    dist_forms, membench, partition_bench)
+from aqp_tpu_torch.experiments.dist_forms import live_rows  # noqa: E402
 from aqp_tpu_torch.joins import (  # noqa: E402
     cht, crk, skewtier, sortmerge)
 from aqp_tpu_torch.joins.api import (  # noqa: E402
@@ -308,6 +309,9 @@ from aqp_tpu_torch.ops.hashing import fib_hash32  # noqa: E402
 from aqp_tpu_torch.ops.kernels import (  # noqa: E402
     aggpipe, blocksort, build, compact, lanecompact, nphj, rho3, rstats)
 from aqp_tpu_torch.ops.kernels import scan as kscan  # noqa: E402
+from aqp_tpu_torch.ops.kernels.held import (  # noqa: E402
+    as_list, flat_outputs, held_to_plain, max_abs_err, read_launches,
+    reset_launches)
 from aqp_tpu_torch.parallel import bringup  # noqa: E402
 from aqp_tpu_torch.parallel import dist_join as pdj  # noqa: E402
 from aqp_tpu_torch.parallel import shuffle as pshuffle  # noqa: E402
@@ -363,9 +367,6 @@ REPLACES = {"K1": "aqp_tpu/ops/pallas/rho3.py:212",
             "RSTATS": "aqp_tpu/joins/skewtier.py:113",
             "sort_hist": "aqp_tpu/ops/pallas/compact.py:86",
             "sort_blocks": "aqp_tpu/ops/pallas/blocksort.py:103"}
-COUNTERS = (rho3.LAUNCHES, lanecompact.LAUNCHES, compact.LAUNCHES,
-            kscan.LAUNCHES, aggpipe.LAUNCHES, nphj.LAUNCHES, rstats.LAUNCHES,
-            blocksort.LAUNCHES)
 W = 512                              # the compactor's window, in rows
 # the compaction keeps lo <= key <= hi: every key but the input pad
 KEEP_RANGE = (lanecompact.INT32_MIN + 1, lanecompact.PAD_R_INPUT - 1)
@@ -460,20 +461,6 @@ def device_op_checks(rows) -> None:
             f"kernel {split['kernel_us']} us a launch: {split['device_ops']}")
 
 
-def max_abs_err(got, want) -> int:
-    """Largest |got - want| over matching outputs (None must meet None)."""
-    err = 0
-    for g, w in zip(got, want):
-        if g is None or w is None:
-            require(g is None and w is None, "an output is missing")
-            continue
-        require(tuple(g.shape) == tuple(w.shape),
-                f"shape {tuple(g.shape)} != {tuple(w.shape)}")
-        d = (g.long() - w.long()).abs()
-        err = max(err, int(d.max()) if d.numel() else 0)
-    return err
-
-
 def stage_inputs(rk, rp, sk, sp, prm, with_payload, salt=rho3.HASH_C,
                  scale=None):
     """The inputs the main path hands K1, K2 and K3, from the kernels
@@ -532,19 +519,6 @@ def main_path_launches(phase: str) -> dict:
     got = read_launches()
     MAIN_PATH[phase] = got
     return got
-
-
-def reset_launches() -> None:
-    for counter in COUNTERS:
-        for k in counter:
-            counter[k] = 0
-
-
-def read_launches() -> dict:
-    out = {}
-    for counter in COUNTERS:
-        out.update(counter)
-    return out
 
 
 def kernel_row(name, err, k_ms, p_ms, bound_ms, library_ms=None,
@@ -842,17 +816,6 @@ def compaction_stages(key, pay, keep_frac, cap_rows):
                                      plain6b)}, counts, ow, int(ovf)
 
 
-def as_list(out):
-    return list(out) if isinstance(out, (tuple, list)) else [out]
-
-
-def flat_outputs(name, out):
-    if name.startswith("compact_windows"):
-        blocks, counts = out
-        return [*blocks, counts]
-    return as_list(out)
-
-
 def check_compaction(n, drop, keep_frac, seed, want_cut) -> None:
     key, pay = compaction_inputs(n, drop, seed)
     need = -(-int((key < lanecompact.PAD_R_INPUT).sum()) // 128)
@@ -926,18 +889,6 @@ def check_scatter_cases() -> None:
         say(f"scatter_segments and scatter_segments_one ({label}: {nseg} "
             f"segments, {out_rows} rows, {covered} not fill) equal their "
             "plain versions")
-
-
-def live_rows(key, r_pay, s_pay):
-    """The live (key, R payload, S payload) rows of a materialized result,
-    in one canonical order: equal outputs give equal tensors."""
-    live = key != -3
-    k = key[live].long()
-    rp = r_pay[live].long() & U32
-    packed = (k << 32) | (s_pay[live].long() & U32)
-    order = torch.argsort(rp, stable=True)
-    order = order[torch.argsort(packed[order], stable=True)]
-    return packed[order], rp[order]
 
 
 def same_live_rows(a, b) -> bool:
@@ -4141,188 +4092,6 @@ def sweep_checks(name, rows, exact) -> dict:
     return out
 
 
-def _pair_plain(ks, ps, soff, doff, sz, nseg, out_rows,
-                fill_key=compact.KEY_PAD_INT):
-    return compact.scatter_segments_plain([ks, ps], soff, doff, sz, out_rows,
-                                          fill_key)
-
-
-def _one_plain(ks, soff, doff, sz, nseg, out_rows,
-               fill_key=compact.KEY_PAD_INT):
-    return compact.scatter_segments_plain([ks], soff, doff, sz, out_rows,
-                                          fill_key)[0]
-
-
-PLAIN_PIECE = 1 << 26   # elements a piece of a plain version takes at most
-
-
-def k1_err(got, packed, pay, nb, prm, scale) -> int:
-    """K1's outputs against k1_plain run over runs of whole blocks (K1
-    routes each block of prm.block inputs into that block's own slots),
-    each piece held to its slice of the kernel's slots and counts; where
-    a piece's slots overflowed, its counts alone (an overflowing slot keeps
-    what K1's scatter placed first).  The overflows must sum to K1's."""
-    per = max(1, PLAIN_PIECE // prm.block)
-    err, ovf = 0, 0
-    for b0 in range(0, nb, per):
-        b1 = min(nb, b0 + per)
-        cut = slice(b0 * prm.block, b1 * prm.block)
-        want = rho3.k1_plain(packed[cut], None if pay is None else pay[cut],
-                             b1 - b0, prm, scale)
-        part = [None if g is None else g[b0:b1] for g in got[:3]]
-        ovf += int(want[3])
-        err = max(err, max_abs_err(part[2:], want[2:3]) if int(want[3])
-                  else max_abs_err(part, want[:3]))
-    require(ovf == int(got[3]), f"K1 overflow {int(got[3])}, its plain "
-            f"version {ovf}")
-    return err
-
-
-def k2_err(got, k1, p1, cnt1, prm, scale) -> int:
-    """K2's outputs against k2_plain run over runs of whole windows
-    (prm.group blocks, which K2 merges into the window's own fine slots),
-    each piece held to its slice; the overflows must sum to K2's."""
-    nbg = k1.shape[0] // prm.group
-    per = max(1, PLAIN_PIECE // (prm.group * prm.block))
-    err, ovf = 0, 0
-    for w0 in range(0, nbg, per):
-        w1 = min(nbg, w0 + per)
-        cut = slice(w0 * prm.group, w1 * prm.group)
-        want = rho3.k2_plain(k1[cut], None if p1 is None else p1[cut],
-                             cnt1[cut], prm, scale)
-        err = max(err, max_abs_err(
-            [None if g is None else g[:, w0:w1] for g in got[:3]], want[:3]))
-        ovf += int(want[3])
-    require(ovf == int(got[3]), f"K2 overflow {int(got[3])}, its plain "
-            f"version {ovf}")
-    return err
-
-
-def region_err(plain):
-    """A comparison for K3, K3M, K3TWO or K3TWO_MAT: `plain` run over runs
-    of the fine slots' first axis, which no region spans; the pieces'
-    matches and checksums (mod 2^32) summed against the kernel's, each
-    piece's columns (which run region-major) against their slice of the
-    kernel's."""
-    def err_of(got, *args):
-        f1 = args[0].shape[0]
-        live = sum(int(a.sum()) for a in args
-                   if isinstance(a, torch.Tensor) and a.dim() == 3)
-        per = max(1, f1 * PLAIN_PIECE // max(1, live))
-        err, m, c, at = 0, 0, 0, 0
-        for i in range(0, f1, per):
-            want = plain(*(a[i:i + per] if isinstance(a, torch.Tensor)
-                           else a for a in args))
-            m, c = m + int(want[0]), c + int(want[1])
-            if len(want) > 2:
-                n = want[2].numel()
-                err = max(err, max_abs_err([g[at:at + n] for g in got[2:]],
-                                           want[2:]))
-                at += n
-        if len(got) > 2:
-            require(at == got[2].numel(), f"the pieces cover {at} of "
-                    f"{got[2].numel()} output rows")
-        return max(err, abs(int(got[0]) - m), abs(int(got[1]) - (c & U32)))
-    return err_of
-
-
-def _pair_plain(ks, ps, soff, doff, sz, nseg, out_rows,
-                fill_key=compact.KEY_PAD_INT):
-    return compact.scatter_segments_plain([ks, ps], soff, doff, sz, out_rows,
-                                          fill_key)
-
-
-def _one_plain(ks, soff, doff, sz, nseg, out_rows,
-               fill_key=compact.KEY_PAD_INT):
-    return compact.scatter_segments_plain([ks], soff, doff, sz, out_rows,
-                                          fill_key)[0]
-
-
-def whole_err(name, plain):
-    """A comparison against one call of the plain version, in phase 3's
-    terms: the compactor's blocks and counts; a scatter's rows but the
-    last (its callers drop it); else every output."""
-    def err_of(got, *args, **kw):
-        want = plain(*args, **kw)
-        if name == "compact_windows":
-            return max_abs_err(flat_outputs(name, got),
-                               flat_outputs(name, want))
-        if name.startswith("scatter"):
-            return max_abs_err([g[:-1] for g in as_list(got)],
-                               [w[:-1] for w in as_list(want)])
-        return max_abs_err(as_list(got), as_list(want))
-    return err_of
-
-
-# kernel -> (the modules whose name for the wrapper the callers call, that
-# name, the comparison with the plain version: in pieces for the routing
-# and region kernels, whose whole plain output would not fit beside the
-# main path's tensors at the sweeps' largest point)
-HELD_KERNELS = {
-    "K1": ((rho3,), "k1", k1_err),
-    "K2": ((rho3,), "k2", k2_err),
-    "K3": ((rho3,), "k3", region_err(rho3.k3_plain)),
-    "K3M": ((rho3,), "k3m", region_err(rho3.k3m_plain)),
-    "K3TWO": ((nphj,), "k3two", region_err(nphj.k3two_plain)),
-    "K3TWO_MAT": ((nphj,), "k3two_mat", region_err(nphj.k3two_mat_plain)),
-    "compact_windows": ((lanecompact,), "_compact_windows", whole_err(
-        "compact_windows", lanecompact.compact_windows_plain)),
-    "scatter_segments": ((lanecompact, aggpipe), "scatter_segments",
-                         whole_err("scatter_segments", _pair_plain)),
-    "scatter_segments_one": ((lanecompact, aggpipe), "scatter_segments_one",
-                             whole_err("scatter_segments_one", _one_plain)),
-    "RSTATS": ((skewtier,), "r_cand_stats_kernel",
-               whole_err("RSTATS", rstats.r_cand_stats_plain)),
-    "scan_count": ((kscan,), "count", whole_err("scan_count",
-                                                kscan.count_plain)),
-    "scan_sum": ((kscan,), "sum_", whole_err("scan_sum", kscan.sum_plain)),
-    "scan_bitvector": ((kscan,), "bitvector",
-                       whole_err("scan_bitvector", kscan.bitvector_plain)),
-    "K3AGG": ((aggpipe,), "k3agg", whole_err("K3AGG", aggpipe.k3agg_plain)),
-}
-
-
-def _held_call(name, kernel, err_of, held, *args, **kw):
-    if name == "compact_windows":   # its launch count is kept by form
-        name = lanecompact._form(kw.get("with_ids", False),
-                                 kw.get("with_values", False),
-                                 kw.get("dict_tables"))
-    got = kernel(*args, **kw)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    err = err_of(got, *args, **kw)
-    torch.cuda.synchronize()
-    shapes = [list(a.shape) for a in args if isinstance(a, torch.Tensor)]
-    require(err == 0, f"{name} differs from its plain version by {err} on "
-            f"a sweep's inputs {shapes}")
-    rec = held.setdefault(name, {"launches": 0, "max_abs_err": 0,
-                                 "inputs": []})
-    rec["launches"] += 1
-    rec["max_abs_err"] = max(rec["max_abs_err"], err)
-    if shapes not in rec["inputs"]:
-        rec["inputs"].append(shapes)
-    return got
-
-
-@contextlib.contextmanager
-def held_to_plain(held):
-    """Every wrapper of HELD_KERNELS, where the joins call it, replaced by
-    one that launches the kernel, runs the plain version on the same
-    inputs and requires equal outputs (its comparison in HELD_KERNELS);
-    `held` gathers each kernel's held launches and input shapes."""
-    saved = {}
-    for name, (mods, attr, err_of) in HELD_KERNELS.items():
-        for mod in mods:
-            saved[(mod, attr)] = kernel = getattr(mod, attr)
-            setattr(mod, attr, functools.partial(_held_call, name, kernel,
-                                                 err_of, held))
-    try:
-        yield
-    finally:
-        for (mod, attr), kernel in saved.items():
-            setattr(mod, attr, kernel)
-
-
 def sweeps_held(drivers, exact, launched) -> dict:
     """The sweeps once more with every kernel launch held to its plain
     version on the inputs the main path gives it (held_to_plain): each
@@ -4466,6 +4235,8 @@ PARALLEL_WATCHDOG_S = 600            # the phase's own watchdog
 SHARDS = 8                           # the 8-shard layout laid out on the card
 WEAK_SCALING_ARGV = ["--ranks", "1", "--reps", "3"]
 WEAK_SCALING_TIMEOUT_S = 300
+DIST_FORMS_ARGV = ["--ranks", "1", "--reps", "3"]
+DIST_FORMS_TIMEOUT_S = 300
 
 
 def exchange_on_one_card(rel, pad_key) -> tuple:
@@ -4635,6 +4406,62 @@ def weak_scaling_run(card) -> dict:
     return {"s": secs, "ms": out}
 
 
+def dist_forms_run(card, want, want_z) -> dict:
+    """experiments/dist_forms at full width with one rank, in a process of
+    its own: rc 0, every form of the strong run printed with the exact
+    core's answer on phase 17's relations (the same seeds), overflow 0,
+    the pad-key and int64 cases, K1, K2 and K3 launched on its main path
+    (recorded as this phase's "17 dist_forms" launches) and held to their
+    plain versions.  Returns the forms' rows, keyed by form, and the
+    summary."""
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "aqp_tpu_torch.experiments.dist_forms",
+         *DIST_FORMS_ARGV], capture_output=True, text=True,
+        timeout=DIST_FORMS_TIMEOUT_S,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    secs = time.perf_counter() - t0
+    require(run.returncode == 0, f"dist_forms exited {run.returncode}: "
+            f"{run.stderr[-3000:]}")
+    lines = [json.loads(line) for line in run.stdout.splitlines()
+             if line.startswith('{"dist_form')]
+    rows = {r["dist_form"]["form"]: r["dist_form"] for r in lines
+            if "dist_form" in r}
+    summary = next((r["dist_forms"] for r in lines if "dist_forms" in r),
+                   None)
+    require(summary is not None, f"dist_forms printed no summary: "
+            f"{run.stdout[-2000:]}")
+    strong = ("count pallas", "count xla", "2d pallas", "2d xla",
+              "materialize", "ring", "skew z=1.5", "auto", "auto z=1.5")
+    cases = [f"{c} {f}" for c in ("pad keys", "int64")
+             for f in ("pallas", "2d pallas", "auto")]
+    require(set(rows) == set(strong + tuple(cases)), f"dist_forms printed "
+            f"the forms {sorted(rows)}")
+    for label in strong:
+        r = rows[label]
+        w = want_z if "z=1.5" in label else want
+        require((r["matches"], r["checksum"], r["overflow"]) == w + (0,)
+                and (r["nr"], r["ns"]) == (NR, NS) and r["ms"] > 0,
+                f"dist_forms {label}: {r}, phase 17's exact core {w}")
+    launches = dict(zip(summary["kernels"], summary["launches"][0]))
+    held = dict(zip(summary["kernels"], summary["held"][0]))
+    errs = dict(zip(summary["kernels"], summary["max_abs_err"][0]))
+    require(all(launches.values()) and all(held.values())
+            and not any(errs.values()), f"dist_forms: launches {launches}, "
+            f"held {held}, max_abs_err {errs}")
+    MAIN_PATH["17 dist_forms"] = {**{k: 0 for k in read_launches()},
+                                  **launches}
+    say(f"phase 17 dist_forms ({' '.join(DIST_FORMS_ARGV)}) in {secs:.2f} "
+        f"s, every form equal to the exact core, tiers "
+        f"{ {k: r['tier'] for k, r in rows.items() if r['tier']} }; "
+        f"launches {launches}, held {held} (max_abs_err 0), peak "
+        f"{summary['peak_bytes'][0][0]} bytes ({card}): "
+        + ", ".join(f"{k} {r['ms']:.3f} ms" for k, r in rows.items()
+                    if "ms" in r))
+    say(f"phase 17 dist_forms count pallas's steps: {summary['steps']}")
+    return {"s": secs, "rows": rows, "summary": summary}
+
+
 def parallel_steps(relR, relS, mesh, card) -> dict:
     """ms of the "pallas" count join's steps at world size 1: each side's
     pack (_pack_send_buffers) and whole shuffle (pack, all_reduce of the
@@ -4658,28 +4485,6 @@ def parallel_steps(relR, relS, mesh, card) -> dict:
     return ms
 
 
-def pad_key_relations(wide: bool) -> tuple:
-    """R = {2^30 - 2, 2^30 - 1, 5, 7, 9, 100 ... 399}, S = {2^30 - 2,
-    2^30 - 1, 5, 5, 9, 11, 100 ... 399 three times}, seeded payloads: 905
-    matches.  wide: int64 keys past 2^40, payloads past 32 bits."""
-    pads = [rho3.PAD_R_INPUT, rho3.PAD_S_INPUT]
-    rk = torch.tensor(pads + [5, 7, 9] + list(range(100, 400)),
-                      dtype=torch.int64)
-    sk = torch.tensor(pads + [5, 5, 9, 11] + list(range(100, 400)) * 3,
-                      dtype=torch.int64)
-    gen = torch.Generator().manual_seed(2021)
-    bound = 1 << (40 if wide else 31)
-    rels = []
-    for k in (rk, sk):
-        pay = torch.randint(-bound, bound, k.shape, generator=gen,
-                            dtype=torch.int64)
-        k = k + (1 << 40) if wide else k
-        dtype = torch.int64 if wide else torch.int32
-        rels.append(Relation(key=k.to(DEV, dtype), payload=pay.to(DEV,
-                                                                   dtype)))
-    return tuple(rels)
-
-
 def pad_key_checks(mesh, mesh2) -> dict:
     """Real keys equal to rho3's input pads through "pallas" (overflow
     reported, never a short count) and auto (the truth, tier
@@ -4687,7 +4492,7 @@ def pad_key_checks(mesh, mesh2) -> dict:
     (the truth, no kernel launched).  The truth is the exact core's."""
     out = {}
     for wide in (False, True):
-        r, s = pad_key_relations(wide)
+        r, s = dist_forms.pad_key_relations(wide, DEV)
         ex = mergejoin.merge_join_count(r.key, r.payload, s.key, s.payload)
         want = (int(ex.matches), int(ex.checksum))
         require(want[0] == 905, f"the pad-key relations hold {want[0]} "
@@ -4729,8 +4534,8 @@ def parallel_phase(card) -> dict:
     phase 4's relations (phase 8's z = 1.5 S for the skew forms), each
     form equal to the exact core and RHO; K1, K2 and K3 on its main path
     and held to their plain versions; the 8-shard layout on the card;
-    the forms timed; weak_scaling with one rank.  Returns the parallel
-    line."""
+    the forms timed; weak_scaling and dist_forms with one rank, each in
+    a process of its own.  Returns the parallel line."""
     faulthandler.dump_traceback_later(PARALLEL_WATCHDOG_S, exit=True)
     t0 = time.perf_counter()
     world = bringup.initialize_distributed(
@@ -4791,6 +4596,7 @@ def parallel_phase(card) -> dict:
     torch.distributed.destroy_process_group()
     torch.cuda.empty_cache()
     weak = weak_scaling_run(card)
+    forms_run = dist_forms_run(card, want, want_z)
     return {"parallel": {"card": card, "world": world, "backend": backend,
                          "want": want, "want_z": want_z, "tiers": tiers,
                          "launches": launches, "ms": ms, "steps": steps,
@@ -4798,7 +4604,17 @@ def parallel_phase(card) -> dict:
                          "held": {k: {"launches": v["launches"],
                                       "max_abs_err": v["max_abs_err"]}
                                   for k, v in held.items()},
-                         "weak_scaling": weak}}
+                         "weak_scaling": weak,
+                         "dist_forms": {
+                             "s": forms_run["s"],
+                             "ms": {k: r["ms"] for k, r in
+                                    forms_run["rows"].items() if "ms" in r},
+                             "tiers": {k: r["tier"] for k, r in
+                                       forms_run["rows"].items()
+                                       if r["tier"]},
+                             "launches": forms_run["summary"]["launches"],
+                             "peak_bytes":
+                                 forms_run["summary"]["peak_bytes"]}}}
 
 
 # ---------------------------------------------------------------------------

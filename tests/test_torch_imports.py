@@ -80,7 +80,9 @@ def test_imports_without_jax():
             "aqp_tpu_torch.experiments.scan_bench, "
             "aqp_tpu_torch.experiments.aggregate_bench, "
             "aqp_tpu_torch.experiments.tpch_bench, "
-            "aqp_tpu_torch.experiments.cracking; "
+            "aqp_tpu_torch.experiments.cracking, "
+            "aqp_tpu_torch.experiments.dist_forms, "
+            "aqp_tpu_torch.ops.kernels.held; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

@@ -35,6 +35,7 @@ from aqp_tpu.parallel import shuffle as ref_shuffle
 from aqp_tpu.parallel import skew as ref_skew
 from aqp_tpu.relation import Relation as JRelation
 
+from aqp_tpu_torch.parallel import bringup
 from aqp_tpu_torch.parallel import dist_join as dj
 from aqp_tpu_torch.parallel import shuffle, skew
 from aqp_tpu_torch.parallel.bringup import initialize_distributed
@@ -308,6 +309,38 @@ def test_int64_relations_reach_no_kernel(pad_cases, world, case):
     tail = ("hash",) if case == "auto" else (0, 0)
     assert same_on_every_rank(pad_cases(world, "wide"), case) == (
         *want, *tail)
+
+# ---------------------------------------------------------------------------
+# Zipf z = 1.5 S on four ranks: auto's skew tier sizes its heavy buffer from
+# the heavy rows a rank holds (C11); the reference's fixed 4,096 overflows
+
+
+@functools.lru_cache(maxsize=None)
+def zipf_inputs() -> tuple:
+    """2^14 dense-PK R against 2^16 Zipf z = 1.5 S (seeds 11111 and 22222,
+    random payloads), as numpy."""
+    from aqp_tpu_torch.experiments import dist_forms
+
+    r, _, z = dist_forms.relations(1 << 14, 1 << 16, "cpu")
+    return tuple(t.numpy() for t in (r.key, r.payload, z.key, z.payload))
+
+
+def test_auto_answers_zipf_1_5_on_four_ranks_in_the_skew_tier():
+    cols = zipf_inputs()
+    want = cases.truth_pk(*cols)
+    assert want[0] == 1 << 16
+    got = bringup.spawn_ranks(cases.auto_case, 4, (cols,), timeout_s=240.0)
+    assert got == [(*want, "skew")] * 4
+
+
+def test_reference_auto_overflows_on_zipf_1_5_on_four_devices():
+    """The reference keeps its fixed heavy buffer: on the same numpy
+    inputs its auto raises (a quirk of the reference, recorded here)."""
+    rk, rp, zk, zp = (jnp.asarray(c) for c in zipf_inputs())
+    with pytest.raises(RuntimeError, match="overflow beyond every tier"):
+        ref_dj.dist_join_count_auto(JRelation(rk, rp), JRelation(zk, zp),
+                                    jmesh(4))
+
 
 # ---------------------------------------------------------------------------
 # The modules: the shuffle's buffers, the heavy keys, the shards

@@ -93,6 +93,45 @@ def run_cases(rank: int, world: int, inputs: dict) -> dict:
     return out
 
 
+def truth_pk(rk, rp, sk, sp) -> tuple:
+    """(matches, checksum) of unique R keys against S, in numpy: each S row
+    meets the R row of its key, the checksum the sum of both payloads' low
+    32 bits mod 2^32."""
+    order = np.argsort(rk)
+    at = np.clip(np.searchsorted(rk[order], sk), 0, rk.size - 1)
+    hit = rk[order][at] == sk
+    ck = ((rp[order][at][hit].astype(np.int64) & 0xFFFFFFFF).sum()
+          + (sp[hit].astype(np.int64) & 0xFFFFFFFF).sum())
+    return int(hit.sum()), int(ck) & 0xFFFFFFFF
+
+
+def auto_case(rank: int, world: int, cols) -> tuple:
+    """dist_join_count_auto over every rank of the group, on the whole
+    relations (R keys, R payloads, S keys, S payloads)."""
+    mesh = make_mesh(world, device="cpu")
+    return dj.dist_join_count_auto(relation(cols[:2]), relation(cols[2:]),
+                                   mesh)
+
+
+def broken_ring_rank(rank: int, world: int, *args) -> list:
+    """experiments/dist_forms.run_rank with rank 1's ring answering one
+    match too many: that rank's check must fail."""
+    from aqp_tpu_torch.experiments import dist_forms
+
+    if rank == 1:
+        make = dj.make_dist_join_count_ring
+
+        def broken(*a, **k):
+            fn = make(*a, **k)
+
+            def call(*x):
+                m, c = fn(*x)
+                return m + 1, c
+            return call
+        dj.make_dist_join_count_ring = broken
+    return dist_forms.run_rank(rank, world, *args)
+
+
 def spawn_cases(world: int, inputs: dict) -> list:
     """run_cases on `world` gloo ranks; each rank's results in rank order."""
     return bringup.spawn_ranks(run_cases, world, (inputs,), timeout_s=240.0)
